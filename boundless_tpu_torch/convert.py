@@ -1,0 +1,103 @@
+"""numpy <-> port converters for every array the prover carries across.
+
+A proof, its public values and the Poseidon2 tables are this system's
+"weights": tests move them between the JAX package and the port as numpy
+arrays of Montgomery words. The flat proof dictionary is keyed by field
+path (`open_data.rows`, `fri_proof.round_roots.0`, ...) so that a proof of
+either package flattens to the same keys. This module imports no JAX: it
+reads leaves through `numpy.asarray`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .air.rv32im import PublicValues
+from .core import field as F
+from .core import fri
+from .core import poseidon2 as P2
+from .prover import stark
+
+_OPENINGS = ("open_ctrl", "open_data", "open_accum", "open_check")
+_FRI_LISTS = ("round_roots", "round_rows", "round_paths")
+
+
+def to_numpy(x) -> np.ndarray:
+    """Torch tensor, JAX array or numpy array -> numpy (no copy if numpy)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def tensor(x, device="cpu") -> torch.Tensor:
+    """Montgomery words (any integer array < P) -> int32 tensor on `device`."""
+    arr = to_numpy(x).astype(np.int64)
+    if arr.size and (arr.min() < 0 or arr.max() >= F.P):
+        raise ValueError("not an array of reduced field words")
+    return torch.from_numpy(arr.astype(np.int32)).to(device)
+
+
+def proof_to_numpy(proof, prefix: str = "", out=None) -> dict:
+    """SegmentProof (either package) -> {field path: uint32 array}.
+
+    Named tuples recurse by field name, tuples by index; None is absent."""
+    out = {} if out is None else out
+    if proof is None:
+        return out
+    if hasattr(proof, "_fields"):
+        for name in proof._fields:
+            proof_to_numpy(getattr(proof, name), f"{prefix}{name}.", out)
+    elif isinstance(proof, tuple):
+        for i, v in enumerate(proof):
+            proof_to_numpy(v, f"{prefix}{i}.", out)
+    else:
+        out[prefix[:-1]] = to_numpy(proof).astype(np.uint32)
+    return out
+
+
+def proof_from_numpy(flat: dict, device="cpu") -> stark.SegmentProof:
+    """Inverse of `proof_to_numpy`, building the port's SegmentProof."""
+    t = lambda k: tensor(flat[k], device)  # noqa: E731
+    fields = {}
+    for name in stark.SegmentProof._fields:
+        if name in _OPENINGS:
+            fields[name] = (stark.GroupOpening(t(f"{name}.rows"),
+                                               t(f"{name}.paths"))
+                            if f"{name}.rows" in flat else None)
+        elif name == "fri_proof":
+            lists = {}
+            for lst in _FRI_LISTS:
+                keys = sorted((k for k in flat
+                               if k.startswith(f"fri_proof.{lst}.")),
+                              key=lambda k: int(k.rsplit(".", 1)[1]))
+                lists[lst] = tuple(t(k) for k in keys)
+            fields[name] = fri.FriProof(
+                lists["round_roots"], lists["round_rows"],
+                lists["round_paths"], t("fri_proof.final_coeffs"))
+        else:
+            fields[name] = t(name) if name in flat else None
+    return stark.SegmentProof(**fields)
+
+
+_PUB_FIELDS = [f.name for f in dataclasses.fields(PublicValues)]
+
+
+def pub_to_numpy(pub) -> dict:
+    """PublicValues (either package) -> {field: uint32 Montgomery array}."""
+    return {k: to_numpy(getattr(pub, k)).astype(np.uint32)
+            for k in _PUB_FIELDS}
+
+
+def pub_from_numpy(flat: dict, device="cpu") -> PublicValues:
+    return PublicValues(**{k: tensor(flat[k], device) for k in _PUB_FIELDS})
+
+
+def poseidon2_constants() -> tuple:
+    """The port's (external rc (8, 24), internal rc (21,), mu (24,)) tables
+    as uint32 Montgomery numpy, laid out like the JAX `P2._constants()`."""
+    ext_rc, int_rc, mu = P2.constants()
+    return (ext_rc.astype(np.uint32), int_rc.astype(np.uint32),
+            mu.astype(np.uint32))

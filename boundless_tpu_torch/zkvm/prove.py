@@ -1,0 +1,111 @@
+"""Segment proving pipeline: executor segment -> SegmentReceipt, on torch.
+
+Counterpart of `boundless_tpu/zkvm/prove.py`: the witness (C++ cycle loop
+when g++ is available, else the Python replay), the program's image table
+as the ctrl trace (its Merkle root is the image id), and the port's STARK
+prover on the RV32IM AIR variant the program needs. `device` picks where
+the proof runs; on a CUDA device every hash is the CUDA sponge.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import subprocess
+from typing import Optional
+
+import numpy as np
+
+from ..air.rv32im import Rv32imAir
+from ..core import field as F
+from ..prover import stark
+from . import witness
+from .executor import GuestFault, MemoryImage, Segment
+
+# 100 queries at commit rate 1/2: the reference's default proof system.
+DEFAULT_PS = stark.ProofSystem(queries=100, fri_min_degree=256)
+# Small system for CI (NOT production soundness).
+TEST_PS = stark.ProofSystem(queries=8, fri_min_degree=16)
+
+_AIRS = {"rv32im": Rv32imAir(), "rv32i": Rv32imAir(False)}
+
+
+def image_uses_m(image) -> bool:
+    """True iff any decoded instruction word of the image is an M op."""
+    return any(witness.decode_row(a, w)[-1] for a, w in image.words.items())
+
+
+def air_variant_of(image, seg: Optional[Segment] = None) -> str:
+    """AIR variant for a program (and segment): keccak bursts and M ops
+    need "rv32im"; everything else proves under the thinner "rv32i"."""
+    if seg is not None and getattr(seg, "kec_perms", 0):
+        return "rv32im"
+    return "rv32im" if image_uses_m(image) else "rv32i"
+
+
+@dataclasses.dataclass
+class SegmentReceipt:
+    """Proof + claim for one segment (claim values canonical numpy)."""
+
+    proof: stark.SegmentProof
+    pub: dict  # canonical claim values (witness.SegmentWitness.pub)
+    image_id: np.ndarray  # (8,) canonical u32 digest words
+    po2: int
+    variant: str = "rv32im"
+
+
+_IMAGE_CTRL_CACHE: dict = {}
+
+
+def _image_ctrl(image: MemoryImage, po2: int, ps: stark.ProofSystem,
+                device="cpu"):
+    """(ctrl trace tensor, canonical image id) for a program, cached."""
+    key = (image.image_id(), po2, ps.commit_expand, str(device))
+    if key not in _IMAGE_CTRL_CACHE:
+        ctrl = F.fp(witness.build_ctrl_trace(image, po2), device)
+        root = stark.control_root_of(_AIRS["rv32im"], po2, ctrl, ps)
+        _IMAGE_CTRL_CACHE[key] = (ctrl, F.from_mont(root).cpu().numpy())
+    return _IMAGE_CTRL_CACHE[key]
+
+
+def image_id_of(image: MemoryImage, po2: int,
+                ps: stark.ProofSystem = DEFAULT_PS) -> np.ndarray:
+    """Proof-level image id: Merkle root of the image-table commitment."""
+    return _image_ctrl(image, po2, ps)[1]
+
+
+def _gen_witness(image, seg, rng=None):
+    """The C++ witness generator; the Python replay only when the native
+    library cannot be built or loaded (guest faults propagate)."""
+    try:
+        return witness.trace_segment_native(image, seg, seg.po2, rng)
+    except GuestFault:
+        raise
+    except (OSError, AttributeError, subprocess.SubprocessError):
+        return witness.trace_segment(image, seg, seg.po2, rng)
+
+
+def prove_segment(image: MemoryImage, seg: Segment,
+                  ps: stark.ProofSystem = DEFAULT_PS, device="cpu",
+                  rng: Optional[np.random.Generator] = None
+                  ) -> SegmentReceipt:
+    """Generate the witness and prove one segment on `device`."""
+    variant = air_variant_of(image, seg)
+    w = _gen_witness(image, seg, rng)
+    data = F.fp(witness.data_for_variant(w.data, variant), device)
+    ctrl, image_id = _image_ctrl(image, seg.po2, ps, device)
+    pub = witness.to_public_values(w.pub, device)
+    proof = stark.prove(_AIRS[variant], data, pub, seg.po2, ps, ctrl)
+    return SegmentReceipt(proof=proof, pub=w.pub, image_id=image_id,
+                          po2=seg.po2, variant=variant)
+
+
+def verify_segment(receipt: SegmentReceipt,
+                   ps: stark.ProofSystem = DEFAULT_PS) -> bool:
+    """Verify a SegmentReceipt against its claimed image id, on the
+    device its proof lives on."""
+    device = receipt.proof.data_root.device
+    pub = witness.to_public_values(receipt.pub, device)
+    control_root = F.fp(np.asarray(receipt.image_id, dtype=np.int64), device)
+    ok = stark.verify(_AIRS[receipt.variant], receipt.proof, pub,
+                      receipt.po2, control_root, ps)
+    return bool(ok)
