@@ -7,9 +7,11 @@ and here run on the torch algebras of `air/dsl.py`. The parts that called
 JAX directly are rewritten in torch: `public_logup_sum`, the raw-trace row
 adapter and `accum_trace` (whose running sum is an exact int64 prefix sum
 in place of the reference's associative scan: field addition is exact, so
-every scan order gives the same words). The reference's fused-kernel hooks
-(`pallas_pub_pack`/`unpack`) and the recursion wire-algebra branch are not
-ported.
+every scan order gives the same words). The reference's fused-kernel
+public-input hooks (`pallas_pub_pack`/`unpack`) are here as
+`cons_pub_pack`/`cons_pub_unpack`, for the CUDA constraint kernel
+(`air/cons_eval.py`, `kernels/cons.py`), which every proof on the card
+runs. The recursion wire-algebra branch is not ported.
 
 Variants: `Rv32imAir(True)` is the full RV32IM layout (584 data columns,
 keccak burst machinery), `Rv32imAir(False)` the RV32I prefix (392).
@@ -531,6 +533,19 @@ def _block(x, idx):
 # ---------------------------------------------------------------------------
 
 
+class _KernelPub:
+    """Boundary publics as views of the constraint kernel's packed public
+    vector (`Rv32imAir.cons_pub_unpack`). Only the leaves `constraints`
+    reads directly; io/mem enter solely through the precomputed S_pub."""
+
+    __slots__ = ("pre_pc", "post_pc", "halted", "pre_seqs", "post_seqs",
+                 "pre_regs", "post_regs")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
 class Rv32imAir(dsl.Air):
     ctrl_cols = CC.total
     globals_count = 2  # gamma, delta
@@ -548,6 +563,35 @@ class Rv32imAir(dsl.Air):
     def zk_rows(self, po2: int) -> int:
         """Blinded tail rows (module-level zk_rows; ZK on by default)."""
         return zk_rows(po2)
+
+    # --- fused constraint-kernel hooks (air/cons_eval.py) ---
+    # The kernel evaluates `constraints` traced once into a program whose
+    # row-independent inputs (globals, S_pub, boundary publics) travel as
+    # one packed vector, so the program never depends on a public value.
+    PUB_VEC_WORDS = 256
+
+    def cons_pub_pack(self, pub: PublicValues, globals_):
+        """(globals, S_pub, boundary publics) -> (256,) Montgomery int32."""
+        s_pub = public_logup_sum(pub, globals_[0], globals_[1])
+        parts = [globals_.reshape(-1), s_pub.reshape(-1)]
+        for leaf in (pub.pre_pc, pub.post_pc, pub.halted, pub.pre_seqs,
+                     pub.post_seqs, pub.pre_regs, pub.post_regs):
+            parts.append(leaf.reshape(-1).to(F.I32))
+        flat = torch.cat(parts)
+        assert flat.shape[0] <= self.PUB_VEC_WORDS
+        return torch.nn.functional.pad(
+            flat, (0, self.PUB_VEC_WORDS - flat.shape[0]))
+
+    def cons_pub_unpack(self, sm):
+        """A packed vector's words (any indexable of `PUB_VEC_WORDS`
+        values) -> (globals list, publics view, S_pub); ext values are
+        4-tuples of words."""
+        ext = lambda i: tuple(sm[i: i + 4])  # noqa: E731
+        pub = _KernelPub(
+            pre_pc=sm[12], post_pc=sm[13], halted=sm[14],
+            pre_seqs=sm[15:19], post_seqs=sm[19:23],
+            pre_regs=sm[23:87], post_regs=sm[87:151])
+        return [ext(0), ext(4)], pub, ext(8)
 
     def accum_trace(self, ctrl, data, globals_):
         """LogUp inverse columns per port, then the signed running sum."""

@@ -1,11 +1,15 @@
 """Number-theoretic transform and low-degree extension over Baby Bear.
 
-Counterpart of `boundless_tpu/core/ntt.py`: radix-2 Stockham stages along
-axis 0 of an (N, ...) tensor, natural order in and out, batched over every
-trailing axis; commitments live on the coset GENERATOR * H_{expand*N}.
-Plain torch: the TPU's NTT sub-transform kernel (`core/ntt_pallas.py`) is
-not on this port's path yet (ROADMAP.md). Field arithmetic is exact, so
-the output equals the reference's bit for bit whatever the stage order.
+Counterpart of `boundless_tpu/core/ntt.py`: transforms along axis 0 of an
+(N, ...) tensor, natural order in and out, batched over every trailing
+axis; commitments live on the coset GENERATOR * H_{expand*N}.
+
+`ntt` on a CUDA tensor always runs `ntt_four_step` (the reference's
+`core/ntt_pallas.py` decomposition) through the hand-written sub-transform
+kernel (`kernels/ntt.py`, `csrc/ntt.cu`), at every N: one launch when N
+fits the kernel, two per four-step level otherwise. On a CPU tensor it is
+the plain radix-2 Stockham (`stockham`). Field arithmetic is exact, so
+every split and stage order gives the reference's words bit for bit.
 """
 
 from __future__ import annotations
@@ -50,7 +54,18 @@ def _device_twiddles(n: int, forward: bool, device):
 
 
 def ntt(x, forward: bool = True):
-    """In-order NTT along axis 0. x: int32 Montgomery, shape (N, ...)."""
+    """In-order NTT along axis 0. x: int32 Montgomery, shape (N, ...).
+
+    The CUDA kernel's four-step on a CUDA tensor, Stockham on the CPU."""
+    n = x.shape[0]
+    assert n and n & (n - 1) == 0, f"NTT size must be a power of two, got {n}"
+    if x.device.type == "cuda":
+        return ntt_four_step(x, forward)
+    return stockham(x, forward)
+
+
+def stockham(x, forward: bool = True):
+    """Plain radix-2 Stockham NTT along axis 0 (log2 N torch stages)."""
     n = x.shape[0]
     logn = n.bit_length() - 1
     assert 1 << logn == n, f"NTT size must be a power of two, got {n}"
@@ -64,6 +79,53 @@ def ntt(x, forward: bool = True):
         wb = F.mul(b, tws[t].reshape((1, -1) + (1,) * len(batch)))
         y = torch.cat([F.add(a, wb), F.sub(a, wb)], dim=1)
     return y.reshape((n,) + batch)
+
+
+def _split(n: int):
+    """n = n1 * n2 with n1 <= the kernel's largest sub-transform."""
+    from ..kernels import ntt as NK
+
+    logn = n.bit_length() - 1
+    log1 = min((logn + 1) // 2, NK.MAX_LOG_M)
+    return 1 << log1, 1 << (logn - log1)
+
+
+@functools.lru_cache(maxsize=None)
+def _mid_twiddles(n1: int, n2: int, forward: bool, device):
+    """w_N^(k1 * j) for k1 < n1, j < n2 (Montgomery int32, (n1, n2))."""
+    n = n1 * n2
+    roots = F.ROU_FWD if forward else F.ROU_REV
+    pows = _powers(roots[n.bit_length() - 1], n)
+    exps = np.arange(n1, dtype=np.int64)[:, None] * np.arange(n2)[None, :]
+    return torch.from_numpy(
+        F.mont_np(pows[exps % n]).astype(np.int32)).to(device)
+
+
+def _leading_ntt(x2d, forward: bool):
+    """NTT along axis 0 of a contiguous (n, L): one sub-transform when n
+    fits the kernel, else one four-step level (the first sub-transform
+    stores B = A * w_N^(k1*j) transposed to (n2, n1*L)) and a recursion."""
+    from ..kernels import ntt as NK
+
+    n, lanes = x2d.shape
+    if n <= NK.MAX_M:
+        return NK.sub_ntt(x2d, forward)
+    n1, n2 = _split(n)
+    bt = NK.sub_ntt(x2d.reshape(n1, n2 * lanes), forward,
+                    mid=_mid_twiddles(n1, n2, forward, x2d.device))
+    return _leading_ntt(bt, forward).reshape(n, lanes)
+
+
+def ntt_four_step(x, forward: bool = True):
+    """Four-step NTT (the reference's `ntt_pallas.ntt_four_step`):
+    N = N1*N2, n = n1*N2 + j, k = k2*N1 + k1. A[k1, j] = NTT_N1 along n1,
+    B = A * w_N^(k1*j), transpose to (N2, N1), NTT_N2 along j; the
+    (N2, N1) result is the natural-order output. Bit-identical to
+    `stockham` (exact field math)."""
+    n = x.shape[0]
+    lanes = x[0].numel() if n else 0
+    y = _leading_ntt(x.reshape(n, lanes).contiguous(), forward)
+    return y.reshape(x.shape)
 
 
 def intt(x):

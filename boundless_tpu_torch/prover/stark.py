@@ -13,9 +13,12 @@ proof of the other:
   Merkle openings of every group at the FRI query points.
 
 PyTorch runs eagerly: there is no jit, no buffer donation and no XLA
-scheduling knob. Only the reference's `eval_grid` constraint path is
-ported (not the Pallas constraint kernel). Every tensor of a proof lives
-on the device of the input trace.
+scheduling knob. Every tensor of a proof lives on the device of the input
+trace. The quotient has two routes with bit-identical coefficients (the
+reference's `stark.py:484-534`): on a CUDA card the fused route, one pass
+of the generated constraint kernel over the 4N grid (`kernels/cons.py`)
+and one masked α-combine per divisor class; on the CPU the degree-split
+route, one eager `constraints` pass per N/2N/4N grid.
 """
 
 from __future__ import annotations
@@ -338,6 +341,84 @@ class _TapAccessor:
                           self._o]
 
 
+def _fused_route(device) -> bool:
+    """The fused constraint-kernel route runs on the card."""
+    return device.type == "cuda"
+
+
+def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
+                     fused: bool):
+    """Q = Σ_k alpha^k C_k / Z as (4N, 4) coefficients, from the 4N-grid
+    evaluations `evals` = (ctrl, data, accum).
+
+    `fused=False` (the degree-split route): one constraints() pass per
+    g*H_{expand*N} subgrid of the plan, per job an alpha-combine of its
+    items times its class divisor, interpolated on that subgrid; the parts
+    are summed. `fused=True` (the reference's fused-kernel route,
+    `stark.py:484-498`): one pass of the constraint kernel over the 4N
+    grid (`kernels/cons.py`), one masked alpha-combine per divisor class
+    (the union of that class's jobs: the combine is linear), each times
+    its 4N divisor table, summed and interpolated once. Every part has
+    degree < its grid, so both give the same coefficients word for word.
+    """
+    n = 1 << po2
+    ctrl_evals, data_evals, accum_evals = evals
+    dev = data_evals.device
+    zk, plan = _cons_plan(air, pub, po2)
+
+    def interpolate_parts(expand: int, parts):
+        """Σ comb / Z_class over the (comb, is_point) parts on the
+        g*H_{expand*N} grid -> (expand*N, 4) coefficients."""
+        q_ev = None
+        for comb, is_point in parts:
+            div = _tensor(_divisor_np(n, expand, zk, is_point), dev)
+            term = F.mul(comb, div[:, None])
+            q_ev = term if q_ev is None else F.ext_add(q_ev, term)
+        return NTT.coset_interpolate(q_ev, expand=1)
+
+    if fused:
+        from ..air import cons_eval
+        from ..kernels import cons as CK
+
+        rows = CK.evaluate(air, ctrl_evals, data_evals, accum_evals,
+                           globals_, pub)
+        kinds = cons_eval.trace(air).kinds
+        classes = {}
+        for _, jobs in plan:
+            for keep, is_point in jobs:
+                mask = classes.setdefault(is_point, [False] * len(kinds))
+                for i in range(len(kinds)):
+                    mask[i] = mask[i] or keep is None or bool(keep[i])
+        order = sorted(classes)
+        combs = cons_eval.combine_rows(kinds, rows, alpha,
+                                       [classes[p] for p in order])
+        del rows
+        return interpolate_parts(INV_RATE, zip(combs, order))
+
+    def eval_grid(expand: int, jobs):
+        step = INV_RATE // expand
+
+        def sub(ev):
+            return ev if (ev is None or step == 1) else ev[::step]
+
+        def nxt_of(ev):
+            return None if ev is None else torch.roll(ev, -expand, dims=0)
+
+        subs = [sub(e) for e in evals]
+        now = Columns(*(_ColAccessor(e) for e in subs))
+        nxt = Columns(*(_ColAccessor(nxt_of(e)) for e in subs))
+        cons = air.constraints(BaseAlg(dev), now, nxt, globals_, pub)
+        return interpolate_parts(expand, (
+            (combine_constraints(cons, alpha, at_deep=False, keep=keep),
+             is_point) for keep, is_point in jobs))
+
+    q_coeffs = torch.zeros((INV_RATE * n, EXT), dtype=F.I32, device=dev)
+    for expand, jobs in plan:
+        c_e = eval_grid(expand, jobs)
+        q_coeffs[: c_e.shape[0]] = F.add(q_coeffs[: c_e.shape[0]], c_e)
+    return q_coeffs
+
+
 def prove(air: Air, data_trace, pub, po2: int,
           ps: ProofSystem = ProofSystem(), ctrl_trace=None) -> SegmentProof:
     """Prove one segment on the device of `data_trace`.
@@ -379,37 +460,11 @@ def prove(air: Air, data_trace, pub, po2: int,
 
     alpha = tr.sample_ext()
 
-    # --- composition polynomial over the degree-split grids ---
-    zk, plan = _cons_plan(air, pub, po2)
-
-    def eval_grid(expand: int, jobs):
-        """Q-part coefficients from the g*H_{expand*N} subgrid: one
-        constraints() pass, then per job an alpha-combine of its items
-        divided by its class divisor."""
-        step = INV_RATE // expand
-
-        def sub(ev):
-            return ev if (ev is None or step == 1) else ev[::step]
-
-        def nxt_of(ev):
-            return None if ev is None else torch.roll(ev, -expand, dims=0)
-
-        subs = [sub(ctrl_evals), sub(data_evals), sub(accum_evals)]
-        now = Columns(*(_ColAccessor(e) for e in subs))
-        nxt = Columns(*(_ColAccessor(nxt_of(e)) for e in subs))
-        cons = air.constraints(BaseAlg(dev), now, nxt, globals_, pub)
-        q_ev = None
-        for keep, is_point in jobs:
-            comb = combine_constraints(cons, alpha, at_deep=False, keep=keep)
-            div = _tensor(_divisor_np(n, expand, zk, is_point), dev)
-            term = F.mul(comb, div[:, None])
-            q_ev = term if q_ev is None else F.ext_add(q_ev, term)
-        return NTT.coset_interpolate(q_ev, expand=1)  # (expand*N, 4)
-
-    q_coeffs = torch.zeros((INV_RATE * n, EXT), dtype=F.I32, device=dev)
-    for expand, jobs in plan:
-        c_e = eval_grid(expand, jobs)
-        q_coeffs[: c_e.shape[0]] = F.add(q_coeffs[: c_e.shape[0]], c_e)
+    # --- composition polynomial ---
+    fused = _fused_route(dev)
+    q_coeffs = _quotient_coeffs(air, po2, (ctrl_evals, data_evals,
+                                           accum_evals), globals_, pub,
+                                alpha, fused)
 
     # Split Q(x) = Σ_i x^i Q_i(x^4); commit the 16 base component columns.
     check_coeffs = torch.cat(

@@ -1,25 +1,164 @@
 """rv32im executor: cycle-accurate interpreter with segmentation.
 
-The JAX package's executor (`boundless_tpu/zkvm/executor.py`), with its
-lazy imports pointed at this package: the blinded-tail size and paging
-budgets come from the port's `air/rv32im.py`, and the keccak claim digest
-from the port's `core/poseidon2_np.py`, so no JAX module is ever reached.
-The jax-free pieces of that module (`MemoryImage`, `Segment`,
-`SessionResult`, `GuestFault`, keccak-f[1600]) and `isa` are imported, as
-is the g++/ctypes loader of the native interpreter (`boundless_tpu.native`).
+Counterpart of the upstream prover's `ExecutorImpl::run_with_callback`
+host loop (upstream `prover/crates/workflow/src/tasks/executor.rs:721-786`):
+runs the guest, counts cycles, cuts the execution into 2^po2-cycle segments
+(continuations), records the per-segment witness needed by the segment
+prover, and implements the guest<->host ABI (journal commit, input reads,
+assumption verification for composition).
+
+Guest ABI (our own, documented — guests are assembled in-repo, see asm.py).
+I/O is **word-granular** so the circuit can bind it to public word tables
+without in-circuit hashing (see air/rv32im.py):
+  ecall with t0 =
+    0 HALT        a0 = exit code (journal finalized)
+    1 COMMIT      a0 = 32-bit word appended to the journal
+    2 READ        a0 <- next input word (input is a u32-word stream;
+                  reading past the end is a guest fault — by convention
+                  input[0] carries the payload word count)
+    3 LOG         a0 = ptr, a1 = len   host log bytes (debug only;
+                  unconstrained in-circuit)
+    4 VERIFY      a0 = one word of an assumption claim digest (8 calls
+                  push a full digest; composition — resolved at the
+                  resolve stage, SURVEY §3.1)
+    5 KECCAK      a0 = ptr to a 50-word (25 x u64 LE) state: host applies
+                  keccak-f[1600] in place and records a coprocessor claim
+                  (proved by the coproc stream's keccak circuit + union
+                  tree — reference tasks/{keccak,union}.rs; circuit staged)
+  Every ecall costs 1 cycle.
+
+The port's own copy of `boundless_tpu/zkvm/executor.py`: the same data
+classes, keccak-f[1600] and interpreter, with every lazy import pointed at
+this package (the blinded-tail size and paging budgets of `air/rv32im.py`,
+the keccak claim digest of `core/poseidon2_np.py`, the g++/ctypes loader
+of `native/`), so nothing of the JAX package is ever reached.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import os
 from typing import Optional
 
 import numpy as np
 
-from boundless_tpu.zkvm import isa
-from boundless_tpu.zkvm.executor import (  # noqa: F401 (re-exported)
-    COMMIT, HALT, KECCAK, LOG, M32, READ, VERIFY, GuestFault, MemoryImage,
-    Segment, SessionResult, _PageBudgetStop, keccak_f1600)
+from . import isa
+
+HALT, COMMIT, READ, LOG, VERIFY, KECCAK = range(6)
+
+# keccak-f[1600] round constants / rotations (FIPS 202)
+_KECCAK_RC = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
+    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
+    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
+    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
+    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
+    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
+    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+_KECCAK_ROT = [
+    [0, 36, 3, 41, 18], [1, 44, 10, 45, 2], [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56], [27, 20, 39, 8, 14],
+]
+_M64 = (1 << 64) - 1
+
+
+def keccak_f1600(state):
+    """keccak-f[1600] on a 25-int state (x + 5y indexing), pure Python."""
+    a = list(state)
+    for rc in _KECCAK_RC:
+        # theta
+        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20]
+             for x in range(5)]
+        d = [c[(x - 1) % 5] ^ (((c[(x + 1) % 5] << 1)
+                               | (c[(x + 1) % 5] >> 63)) & _M64)
+             for x in range(5)]
+        a = [(a[i] ^ d[i % 5]) for i in range(25)]
+        # rho + pi
+        b = [0] * 25
+        for x in range(5):
+            for y in range(5):
+                r = _KECCAK_ROT[x][y]
+                v = a[x + 5 * y]
+                b[y + 5 * ((2 * x + 3 * y) % 5)] = \
+                    ((v << r) | (v >> (64 - r))) & _M64
+        # chi
+        a = [b[x + 5 * y] ^ ((~b[(x + 1) % 5 + 5 * y]) & _M64
+                             & b[(x + 2) % 5 + 5 * y])
+             for y in range(5) for x in range(5)]
+        # iota
+        a[0] ^= rc
+    return a
+
+M32 = 0xFFFFFFFF
+
+
+class _PageBudgetStop(Exception):
+    """Internal: segment page budget reached; flush and re-execute."""
+
+
+class GuestFault(Exception):
+    pass
+
+
+@dataclasses.dataclass
+class MemoryImage:
+    """Program image: sparse word memory + entry point."""
+
+    words: dict  # addr -> u32 (word-aligned addresses)
+    entry: int
+
+    @staticmethod
+    def from_words(words, base: int = 0x1000, entry: Optional[int] = None):
+        mem = {base + 4 * i: w & M32 for i, w in enumerate(words)}
+        return MemoryImage(words=mem, entry=entry if entry is not None else base)
+
+    def image_id(self) -> bytes:
+        """Canonical digest binding the program (role of risc0's image ID)."""
+        h = hashlib.sha256()
+        h.update(b"boundless-tpu.image.v1")
+        h.update(self.entry.to_bytes(4, "little"))
+        for addr in sorted(self.words):
+            h.update(addr.to_bytes(4, "little"))
+            h.update(self.words[addr].to_bytes(4, "little"))
+        return h.digest()
+
+
+@dataclasses.dataclass
+class Segment:
+    """One continuation segment: everything needed to prove it in isolation."""
+
+    index: int
+    po2: int
+    pre_pc: int
+    pre_regs: np.ndarray  # (32,) u32
+    pre_mem: dict  # full word store (addr&~3 -> u32) at segment start
+    cycles: int  # actual user cycles executed in this segment
+    # I/O interactions consumed during this segment (for witness re-run):
+    reads: list  # input words returned by READ during the segment
+    pre_seqs: dict  # session commit/read/verify counters at segment start
+    is_final: bool
+    image_id: bytes
+    # cross-segment RAM continuity (paging.py): 64-word pages touched by
+    # load/store in this segment, and the full word store at segment end
+    touched_pages: list = None
+    post_mem: dict = None
+    # keccak permutations executed in this segment (each is a 50-row
+    # burst with public cpio entries; forces the rv32im AIR variant)
+    kec_perms: int = 0
+
+
+@dataclasses.dataclass
+class SessionResult:
+    segments: list
+    journal: bytes
+    exit_code: int
+    total_cycles: int
+    assumptions: list  # list of 32-byte claim digests from VERIFY ecalls
+    log: bytes
+    image_id: bytes
 
 
 def keccak_perm_digest(pre_lanes, post_lanes) -> bytes:
@@ -49,7 +188,7 @@ def fast_execute(image: "MemoryImage", input_bytes: bytes = b"",
     """
     import ctypes
 
-    from boundless_tpu import native
+    from .. import native
 
     lib = native.executor_lib()
     items = sorted(image.words.items())
@@ -220,7 +359,7 @@ class Executor:
         """C++ segment loop (bt_run_segment); session state stays here."""
         import ctypes
 
-        from boundless_tpu import native
+        from .. import native
         from ..air.rv32im import CP_IO, MEM_PAGES
 
         lib = native.executor_lib()

@@ -3,8 +3,13 @@
 Counterpart of `boundless_tpu/zkvm/prove.py`: the witness (C++ cycle loop
 when g++ is available, else the Python replay), the program's image table
 as the ctrl trace (its Merkle root is the image id), and the port's STARK
-prover on the RV32IM AIR variant the program needs. `device` picks where
-the proof runs; on a CUDA device every hash is the CUDA sponge.
+prover on the RV32IM AIR variant the program needs. Proofs run on the CUDA
+card by default, where every hash, NTT and constraint evaluation goes
+through the hand-written kernels; with no card the entry points raise. A
+CPU run passes `device="cpu"` (the plain torch versions of the kernels).
+
+`NATIVE_WITNESSES` / `REPLAY_WITNESSES` count the witnesses that came from
+the C++ generator and from the Python replay.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import subprocess
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..air.rv32im import Rv32imAir
 from ..core import field as F
@@ -27,6 +33,18 @@ DEFAULT_PS = stark.ProofSystem(queries=100, fri_min_degree=256)
 TEST_PS = stark.ProofSystem(queries=8, fri_min_degree=16)
 
 _AIRS = {"rv32im": Rv32imAir(), "rv32i": Rv32imAir(False)}
+
+NATIVE_WITNESSES = 0
+REPLAY_WITNESSES = 0
+
+
+def _device(device) -> torch.device:
+    """The proof's device; a CUDA device without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port proves on the card by "
+                           "default; pass device=\"cpu\" to prove on the CPU")
+    return dev
 
 
 def image_uses_m(image) -> bool:
@@ -57,8 +75,9 @@ _IMAGE_CTRL_CACHE: dict = {}
 
 
 def _image_ctrl(image: MemoryImage, po2: int, ps: stark.ProofSystem,
-                device="cpu"):
+                device="cuda"):
     """(ctrl trace tensor, canonical image id) for a program, cached."""
+    device = _device(device)
     key = (image.image_id(), po2, ps.commit_expand, str(device))
     if key not in _IMAGE_CTRL_CACHE:
         ctrl = F.fp(witness.build_ctrl_trace(image, po2), device)
@@ -68,27 +87,34 @@ def _image_ctrl(image: MemoryImage, po2: int, ps: stark.ProofSystem,
 
 
 def image_id_of(image: MemoryImage, po2: int,
-                ps: stark.ProofSystem = DEFAULT_PS) -> np.ndarray:
+                ps: stark.ProofSystem = DEFAULT_PS,
+                device="cuda") -> np.ndarray:
     """Proof-level image id: Merkle root of the image-table commitment."""
-    return _image_ctrl(image, po2, ps)[1]
+    return _image_ctrl(image, po2, ps, device)[1]
 
 
 def _gen_witness(image, seg, rng=None):
     """The C++ witness generator; the Python replay only when the native
     library cannot be built or loaded (guest faults propagate)."""
+    global NATIVE_WITNESSES, REPLAY_WITNESSES
     try:
-        return witness.trace_segment_native(image, seg, seg.po2, rng)
+        w = witness.trace_segment_native(image, seg, seg.po2, rng)
     except GuestFault:
         raise
     except (OSError, AttributeError, subprocess.SubprocessError):
+        REPLAY_WITNESSES += 1
         return witness.trace_segment(image, seg, seg.po2, rng)
+    NATIVE_WITNESSES += 1
+    return w
 
 
 def prove_segment(image: MemoryImage, seg: Segment,
-                  ps: stark.ProofSystem = DEFAULT_PS, device="cpu",
+                  ps: stark.ProofSystem = DEFAULT_PS, device="cuda",
                   rng: Optional[np.random.Generator] = None
                   ) -> SegmentReceipt:
-    """Generate the witness and prove one segment on `device`."""
+    """Generate the witness and prove one segment on `device` (the card
+    unless the caller asks for the CPU)."""
+    device = _device(device)
     variant = air_variant_of(image, seg)
     w = _gen_witness(image, seg, rng)
     data = F.fp(witness.data_for_variant(w.data, variant), device)

@@ -3,7 +3,7 @@
 The JAX package's witness generator (`boundless_tpu/zkvm/witness.py`),
 wired to the port's column layout (`air/rv32im.py`, identical to the
 reference's): a Python replay (`trace_segment`) and the C++ cycle loop of
-`boundless_tpu/native/witness_gen.cpp` (`trace_segment_native`), sharing
+the port's copy of `native/witness_gen.cpp` (`trace_segment_native`), sharing
 one vectorized tail. All values are canonical int64; `to_public_values`
 lifts the claim to Montgomery tensors.
 
@@ -20,11 +20,11 @@ from typing import Optional
 
 import numpy as np
 
-from boundless_tpu.zkvm import isa
 from ..air import rv32im
 from ..air.rv32im import (DC, DC_I, CC, TAG, IO_MAX, CP_IO, KEC_WORDS,
                           MEM_PAGES, PAGE_WORDS, MEM_PAGE_ELEMS, PublicValues)
 from ..core import field as F
+from . import isa
 from .executor import Segment, MemoryImage, GuestFault, M32
 
 
@@ -804,7 +804,7 @@ def trace_segment_native(image: MemoryImage, seg: Segment, po2: int,
     """
     import ctypes
 
-    from boundless_tpu import native
+    from .. import native
 
     lib = native.witness_lib()
     n = 1 << po2

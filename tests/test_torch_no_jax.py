@@ -1,9 +1,12 @@
-"""The port runs where JAX is not installed (as on the GPU host).
+"""The port runs where JAX and the JAX package are not installed (as on
+the GPU host).
 
-A subprocess blocks `import jax` (`sys.modules["jax"] = None`), imports
-every module of `boundless_tpu_torch` and `chip_smoke.py`, and runs
-executor -> witness -> prove_segment -> verify_segment for the echo guest
-at po2 8 on the CPU.
+A subprocess blocks `import jax` and `import boundless_tpu`
+(`sys.modules[name] = None`), imports every module of
+`boundless_tpu_torch` and `chip_smoke.py`, and runs executor -> witness ->
+prove_segment -> verify_segment for the echo guest at po2 8 on the CPU
+(the native C++ witness included); no `boundless_tpu` module may load. The
+sources of the port and of `chip_smoke.py` must not import either package.
 """
 
 import os
@@ -16,6 +19,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["boundless_tpu"] = None  # and so does the JAX package
 import boundless_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     boundless_tpu_torch.__path__, "boundless_tpu_torch.")]
@@ -24,12 +28,13 @@ for name in names + ["chip_smoke"]:
 from boundless_tpu_torch.zkvm import guests, prove
 from boundless_tpu_torch.zkvm.executor import Executor
 res = Executor(guests.echo(), guests.words([2, 11, 22]), segment_po2=8).run()
-receipt = prove.prove_segment(guests.echo(), res.segments[0], prove.TEST_PS)
+receipt = prove.prove_segment(guests.echo(), res.segments[0], prove.TEST_PS,
+                              device="cpu")
 assert prove.verify_segment(receipt, prove.TEST_PS)
-loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-          or m.startswith(("boundless_tpu.core", "boundless_tpu.air",
-                           "boundless_tpu.prover"))]
-assert loaded == ["jax"], loaded  # only the blocked placeholder
+assert prove.NATIVE_WITNESSES == 1 and prove.REPLAY_WITNESSES == 0
+loaded = [m for m in sys.modules if m.startswith(("jax", "boundless_tpu"))
+          and not m.startswith("boundless_tpu_torch")]
+assert sorted(loaded) == ["boundless_tpu", "jax"], loaded  # placeholders
 print("NOJAX-OK", len(names), receipt.variant)
 """
 
@@ -47,3 +52,17 @@ def test_package_sources_never_import_jax():
         for line in path.read_text().splitlines():
             stripped = line.strip()
             assert not stripped.startswith(("import jax", "from jax")), path
+
+
+def test_port_sources_never_import_the_jax_package():
+    paths = list((ROOT / "boundless_tpu_torch").rglob("*.py"))
+    paths += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch.py"]
+    for path in paths:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            for i, word in enumerate(words[:-1]):
+                if word in ("import", "from"):
+                    name = words[i + 1].rstrip(",")
+                    assert not (name == "boundless_tpu"
+                                or name.startswith("boundless_tpu.")), \
+                        (path, line)

@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from boundless_tpu_torch import convert
 from boundless_tpu_torch.core import field as F
@@ -51,12 +52,87 @@ def test_port_proof_equals_jax_golden(variant):
 
 
 def test_image_id_is_the_golden_control_root():
-    from boundless_tpu.zkvm import guests
+    from boundless_tpu_torch.zkvm import guests
 
     _, _, _, gold = golden("rv32im")
     want = F.from_mont(convert.tensor(gold["ctrl_root"])).numpy()
     np.testing.assert_array_equal(
-        prove.image_id_of(guests.echo(), PO2, prove.TEST_PS), want)
+        prove.image_id_of(guests.echo(), PO2, prove.TEST_PS, device="cpu"),
+        want)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_fused_route_proof_equals_jax_golden(variant, monkeypatch):
+    """The card's quotient route (constraint kernel rows, masked α-combine
+    per class), here on the kernel's plain version, reproduces the golden."""
+    monkeypatch.setattr(stark, "_fused_route", lambda device: True)
+    data, ctrl, pub, gold = golden(variant)
+    proof = stark.prove(prove._AIRS[variant], data, pub, PO2, prove.TEST_PS,
+                        ctrl)
+    assert_proof_equal(convert.proof_to_numpy(proof), gold)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """In a process that has imported JAX, torch's multi-threaded int64
+    kernels run several times slower than on one thread (the po2-12 check
+    below: about 60 s against 15 s)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_fused_and_degree_split_quotients_are_equal(one_torch_thread):
+    """At po2 12 (n >= SPLIT_MIN_ROWS, so the degree split runs on the N,
+    2N and 4N grids) the fused route's quotient coefficients equal the
+    degree-split route's word for word."""
+    from boundless_tpu_torch.core import ntt as NTT
+    from boundless_tpu_torch.zkvm import guests, witness
+    from boundless_tpu_torch.zkvm.executor import Executor
+
+    po2 = 12
+    assert 1 << po2 >= stark.SPLIT_MIN_ROWS
+    image = guests.echo()
+    seg = Executor(image, guests.words([2, 11, 22]),
+                   segment_po2=po2).run().segments[0]
+    w = witness.trace_segment_native(image, seg, po2,
+                                     rng=np.random.default_rng(3))
+    air = prove._AIRS[prove.air_variant_of(image, seg)]
+    data = F.fp(witness.data_for_variant(w.data, air.name))
+    ctrl, pub = F.fp(w.ctrl), witness.to_public_values(w.pub)
+    globals_ = F.ext(np.arange(8).reshape(2, 4) + 5)
+    alpha = F.ext(np.arange(4) + 9)
+    accum = air.accum_trace(ctrl, data, globals_)
+    evals = [NTT.coset_evaluate(NTT.interpolate(x)) for x in
+             (ctrl, data, accum)]
+    assert len(stark._cons_plan(air, pub, po2)[1]) == 3  # N, 2N, 4N grids
+    split = stark._quotient_coeffs(air, po2, evals, globals_, pub, alpha,
+                                   fused=False)
+    fused = stark._quotient_coeffs(air, po2, evals, globals_, pub, alpha,
+                                   fused=True)
+    assert torch.equal(split, fused)
+    assert bool((split[1 << po2:] != 0).any())  # degree > N: a real test
+
+
+def test_prove_segment_defaults_to_the_card():
+    """Without `device=` the entry points target CUDA; with no card they
+    raise instead of proving on the CPU."""
+    import inspect
+
+    from boundless_tpu_torch.zkvm import guests
+    from boundless_tpu_torch.zkvm.executor import Executor
+
+    for fn in (prove.prove_segment, prove.image_id_of, prove._image_ctrl):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    seg = Executor(guests.echo(), guests.words([1, 5]),
+                   segment_po2=PO2).run().segments[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove.prove_segment(guests.echo(), seg, prove.TEST_PS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove.image_id_of(guests.echo(), PO2, prove.TEST_PS)
 
 
 def test_golden_file_is_small_and_complete():

@@ -14,7 +14,7 @@ from boundless_tpu.air import dsl as JDSL
 from boundless_tpu.air import rv32im as JR
 from boundless_tpu.core import field as JF
 from boundless_tpu.prover import stark as JSTARK
-from boundless_tpu.zkvm import guests
+from boundless_tpu.zkvm import guests as jguests
 from boundless_tpu.zkvm import witness as JW
 from boundless_tpu.zkvm.executor import Executor as JExecutor
 from boundless_tpu_torch import convert
@@ -22,6 +22,7 @@ from boundless_tpu_torch.air import dsl
 from boundless_tpu_torch.air import rv32im as R
 from boundless_tpu_torch.core import field as F
 from boundless_tpu_torch.prover import stark
+from boundless_tpu_torch.zkvm import guests
 from boundless_tpu_torch.zkvm import witness as W
 from boundless_tpu_torch.zkvm.executor import Executor
 
@@ -32,8 +33,10 @@ PAYLOAD = [3, 11, 22, 33]
 
 
 def _echo_segment(executor_cls):
-    res = executor_cls(guests.echo(), guests.words(PAYLOAD),
-                       segment_po2=PO2).run()
+    """The echo segment, each package's objects built by its own guests
+    module from the same assembly source and words."""
+    g = guests if executor_cls is Executor else jguests
+    res = executor_cls(g.echo(), g.words(PAYLOAD), segment_po2=PO2).run()
     assert len(res.segments) == 1
     return res
 
@@ -47,7 +50,7 @@ def witnesses():
         seg = _echo_segment(Executor).segments[0]
         jseg = _echo_segment(JExecutor).segments[0]
         out = (W.trace_segment(guests.echo(), seg, PO2),
-               JW.trace_segment(guests.echo(), jseg, PO2),
+               JW.trace_segment(jguests.echo(), jseg, PO2),
                W.trace_segment_native(guests.echo(), seg, PO2))
     finally:
         mp.undo()
@@ -67,8 +70,9 @@ def test_fast_execute_matches_reference():
     from boundless_tpu.zkvm.executor import fast_execute as j_fast_execute
     from boundless_tpu_torch.zkvm.executor import fast_execute
 
-    args = (guests.loop_guest(), guests.words([500]))
-    assert fast_execute(*args) == j_fast_execute(*args)
+    assert fast_execute(guests.loop_guest(), guests.words([500])) == \
+        j_fast_execute(jguests.loop_guest(), jguests.words([500]))
+    assert vars(guests.loop_guest()) == vars(jguests.loop_guest())
 
 
 @pytest.mark.parametrize("variant", VARIANTS)

@@ -11,8 +11,9 @@ The loop guest at `--po2` (as `chip_smoke.py` and the reference's
    wrapped with `torch.cuda.synchronize()` on both sides (inclusive
    seconds; nested rows overlap).
 3. `torch.profiler` over one more proof with the wrappers taken off: device
-   kernel seconds, the device busy share (kernel seconds / profiled wall)
-   and the top operators by device time.
+   kernel seconds, the device busy share (kernel seconds / profiled wall),
+   the launches of each hand-written kernel (sponge, NTT sub-transform,
+   constraint chunks) and the top operators by device time.
 
 Prints the card's `nvidia-smi` name, power limit, SM clock and power draw
 first. Needs a CUDA card; exits non-zero without one.
@@ -32,10 +33,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from boundless_tpu_torch.air import rv32im  # noqa: E402
+from boundless_tpu_torch.air import cons_eval, rv32im  # noqa: E402
 from boundless_tpu_torch.core import bbmm, fri, merkle  # noqa: E402
 from boundless_tpu_torch.core import field as F  # noqa: E402
 from boundless_tpu_torch.core import ntt as NTT  # noqa: E402
+from boundless_tpu_torch.kernels import cons as CK  # noqa: E402
+from boundless_tpu_torch.kernels import ntt as NK  # noqa: E402
 from boundless_tpu_torch.kernels import poseidon2 as P2K  # noqa: E402
 from boundless_tpu_torch.prover import stark  # noqa: E402
 from boundless_tpu_torch.zkvm import guests, prove  # noqa: E402
@@ -48,13 +51,17 @@ STAGES = (
     (merkle, "commit", "merkle.commit (all)"),
     (P2K, "_sponge", "sponge kernel calls"),
     (NTT, "ntt", "ntt (all transforms)"),
+    (NK, "sub_ntt", "NTT sub-transform kernel calls"),
+    (CK, "evaluate", "constraint kernels (4N grid)"),
+    (stark, "_quotient_coeffs", "quotient (kernel + combine + interp.)"),
     (NTT, "eval_poly_ext", "DEEP taps (eval_poly_ext)"),
     (stark, "_deep_combo_evals", "DEEP combination"),
     (fri, "prove", "fri.prove"),
     (bbmm, "bb_weighted_sum", "bb_weighted_sum (all)"),
     (F, "ext_inv", "ext_inv (all)"),
     (stark, "combine_constraints", "alpha-combine (combine_constraints)"),
-    (rv32im.Rv32imAir, "constraints", "air.constraints (grids)"),
+    (cons_eval, "combine_rows", "alpha-combine of kernel rows"),
+    (rv32im.Rv32imAir, "constraints", "air.constraints (eager)"),
     (rv32im.Rv32imAir, "accum_trace", "accum_trace"),
 )
 
@@ -129,11 +136,12 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    launches = P2K.LAUNCHES
+    kernels_ = (("sponge", P2K), ("ntt", NK), ("cons", CK))
+    before = {name: mod.LAUNCHES for name, mod in kernels_}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = timed_proof(image, seg, dev)
-    sponge_launches = P2K.LAUNCHES - launches
+    launches = {name: mod.LAUNCHES - before[name] for name, mod in kernels_}
     # Device time is summed over the kernel events alone: a CPU operator's
     # self device time repeats the time of the kernels it launched.
     kernels = [e for e in prof.events()
@@ -142,8 +150,15 @@ def main():
     device_s = sum(e.device_time_total for e in kernels) / 1e6
     events = prof.key_averages()
     print(f"profiled wall s {wall}; device kernels {len(kernels)}, "
-          f"{device_s} s; busy share {device_s / wall}; sponge launches "
-          f"{sponge_launches}")
+          f"{device_s} s; busy share {device_s / wall}; launches {launches}")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:  # the hand-written kernels, by their CUDA names
+        for key in ("sponge_kernel", "sub_ntt_kernel", "::cons_"):
+            if key in e.name:
+                by_name[key][0] += e.device_time_total / 1e6
+                by_name[key][1] += 1
+    for key, (secs, n) in sorted(by_name.items()):
+        print(f"  device time of {key:16s} {secs:9.6f} s over {n} launches")
     print(events.table(sort_by="self_device_time_total", row_limit=25,
                        max_name_column_width=60), flush=True)
 
