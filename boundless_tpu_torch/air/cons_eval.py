@@ -27,6 +27,7 @@ collect/consume two-phase constant tables are not carried over.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -341,22 +342,36 @@ def rows_of(kinds) -> int:
                for k, g in kinds)
 
 
+@functools.lru_cache(maxsize=None)
+def _weight_layout(kinds: tuple):
+    """Per stacked row: the α-power it weighs with and the power c of the
+    basis X^c it is multiplied by (numpy), and the number of powers."""
+    power, comp, k = [], [], 0
+    for kind, g in kinds:
+        if kind == "ext":
+            power += [k] * 4
+            comp += range(4)
+            k += 1
+        else:
+            power += range(k, k + g)
+            comp += [0] * g
+            k += g
+    return np.array(power), np.array(comp), k
+
+
 def alpha_weight_rows(kinds, alpha):
     """(K, 4) ext weights in the stacked row order, with the verifier's
     α-power assignment (`stark.combine_constraints`): an ext item's 4
-    component rows weigh α^k ⊗ X^c."""
-    total = sum(g if k == "vec" else 1 for k, g in kinds)
-    apows = NTT.ext_powers(alpha, total)
-    basis = F.ext(np.eye(4, dtype=np.int64), alpha.device)
-    rows, k = [], 0
-    for kind, g in kinds:
-        if kind == "ext":
-            rows.append(F.ext_mul(apows[k].expand(4, 4), basis))
-            k += 1
-        else:
-            rows.append(apows[k: k + g])
-            k += g
-    return torch.cat(rows, 0)
+    component rows weigh α^k ⊗ X^c (a base or vec row α^k ⊗ X^0).
+
+    One word of α per proof: the powers and the basis products are
+    computed on a CPU copy of α and the table is copied to α's device
+    once (on the card, hundreds of tiny eager kernels cost milliseconds)."""
+    power, comp, total = _weight_layout(tuple(kinds))
+    pows = NTT.ext_powers(alpha.reshape(F.EXT_DEGREE).cpu(), total)
+    basis = F.ext(np.eye(F.EXT_DEGREE, dtype=np.int64))
+    w = F.ext_mul(pows[torch.from_numpy(power)], basis[torch.from_numpy(comp)])
+    return w.to(alpha.device)
 
 
 def combine_rows(kinds, rows, alpha, masks):

@@ -7,9 +7,13 @@ axis; commitments live on the coset GENERATOR * H_{expand*N}.
 `ntt` on a CUDA tensor always runs `ntt_four_step` (the reference's
 `core/ntt_pallas.py` decomposition) through the hand-written sub-transform
 kernel (`kernels/ntt.py`, `csrc/ntt.cu`), at every N: one launch when N
-fits the kernel, two per four-step level otherwise. On a CPU tensor it is
-the plain radix-2 Stockham (`stockham`). Field arithmetic is exact, so
-every split and stage order gives the reference's words bit for bit.
+fits the kernel, two per four-step level otherwise. On a CUDA tensor the
+LDE glue runs inside those launches too: `coset_evaluate` reads the N
+coefficient rows and multiplies by g^i as it loads (no zero-padded buffer),
+`intt` scales by 1/N and `coset_interpolate` by g^-k / N as the last launch
+stores, keeping only the rows asked for. On a CPU tensor it is the plain
+radix-2 Stockham (`stockham`) and eager glue. Field arithmetic is exact,
+so every split and stage order gives the reference's words bit for bit.
 """
 
 from __future__ import annotations
@@ -101,19 +105,55 @@ def _mid_twiddles(n1: int, n2: int, forward: bool, device):
         F.mont_np(pows[exps % n]).astype(np.int32)).to(device)
 
 
-def _leading_ntt(x2d, forward: bool):
-    """NTT along axis 0 of a contiguous (n, L): one sub-transform when n
-    fits the kernel, else one four-step level (the first sub-transform
-    stores B = A * w_N^(k1*j) transposed to (n2, n1*L)) and a recursion."""
+@functools.lru_cache(maxsize=None)
+def _geometric(m: int, q: int, base: int, scale: int, device):
+    """(A, B) Montgomery int32 tables with A[r] * B[j] = scale * base^(r*q
+    + j) for r < m, j < q: the kernel's multiplier of tile element (r, c),
+    c // L = j, whose row of the whole transform is r*q + j. B is None
+    when base is 1 (A alone)."""
+    a = F.mont_np(scale * _powers(pow(base, q, F.P), m) % F.P)
+    b = None if base == 1 else torch.from_numpy(
+        F.mont_np(_powers(base, q)).astype(np.int32)).to(device)
+    return torch.from_numpy(a.astype(np.int32)).to(device), b
+
+
+def _leading_ntt(x2d, forward: bool, n=None, group=None, shift=None,
+                 store=None, rows_out=None):
+    """NTT along axis 0 of the (n, L') tile whose first rows are the
+    contiguous `x2d` (the rest zero): one sub-transform when n fits the
+    kernel, else one four-step level (the first sub-transform stores B = A
+    * w_N^(k1*j) transposed to (n2, n1*L')) and a recursion.
+
+    Options on the whole transform of the (n_total, group) array: input
+    row i times shift^i (first launch), output row k times scale *
+    base^k for `store` = (base, scale) (last launch), only the first
+    `rows_out` output rows."""
     from ..kernels import ntt as NK
 
-    n, lanes = x2d.shape
+    rows, lanes = x2d.shape
+    n = rows if n is None else n
+    group = lanes if group is None else group
     if n <= NK.MAX_M:
-        return NK.sub_ntt(x2d, forward)
+        q = lanes // group
+        return NK.sub_ntt(
+            x2d, forward, m=n, inner=group,
+            load=None if shift is None else _geometric(n, q, shift, 1,
+                                                       x2d.device),
+            store=None if store is None else _geometric(n, q, *store,
+                                                        x2d.device),
+            rows_out=rows_out)
     n1, n2 = _split(n)
-    bt = NK.sub_ntt(x2d.reshape(n1, n2 * lanes), forward,
-                    mid=_mid_twiddles(n1, n2, forward, x2d.device))
-    return _leading_ntt(bt, forward).reshape(n, lanes)
+    if rows % n2 or (rows_out is not None and rows_out % n1):
+        raise ValueError(f"{rows} rows in / {rows_out} out do not fit the "
+                         f"split {n1} x {n2}")
+    load = None if shift is None else _geometric(
+        n1, n2 * lanes // group, shift, 1, x2d.device)
+    bt = NK.sub_ntt(x2d.reshape(rows // n2, n2 * lanes), forward,
+                    mid=_mid_twiddles(n1, n2, forward, x2d.device), m=n1,
+                    load=load)
+    out = _leading_ntt(bt, forward, n2, group, None, store,
+                       None if rows_out is None else rows_out // n1)
+    return out.reshape(-1, lanes)
 
 
 def ntt_four_step(x, forward: bool = True):
@@ -128,11 +168,32 @@ def ntt_four_step(x, forward: bool = True):
     return y.reshape(x.shape)
 
 
+def _fused(x, n: int, forward: bool, **opts):
+    """The CUDA route of the glue: the kernel's transform of the (n, ...)
+    array whose first x.shape[0] rows are x, with `_leading_ntt`'s
+    options; the trailing axes are flattened to lanes and restored."""
+    batch = x.shape[1:]
+    lanes = x[0].numel() if x.shape[0] else int(np.prod(batch, dtype=np.int64))
+    x2d = x.reshape(x.shape[0], lanes).contiguous()
+    y = _leading_ntt(x2d, forward, n, lanes, **opts)
+    return y.reshape((y.shape[0],) + batch)
+
+
 def intt(x):
-    """Inverse NTT along axis 0 (includes the 1/N scale)."""
+    """Inverse NTT along axis 0 (includes the 1/N scale): the kernel with
+    the scale in its last store on a CUDA tensor, `intt_plain` on the
+    CPU."""
     n = x.shape[0]
-    n_inv = F.const(pow(n, F.P - 2, F.P), x.device)
-    return F.mul(ntt(x, forward=False), n_inv)
+    if x.device.type == "cuda":
+        return _fused(x, n, False, store=(1, pow(n, F.P - 2, F.P)))
+    return intt_plain(x)
+
+
+def intt_plain(x):
+    """Plain torch `intt` on any device: Stockham, then an eager 1/N."""
+    n = x.shape[0]
+    return F.mul(stockham(x, forward=False),
+                 F.const(pow(n, F.P - 2, F.P), x.device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,20 +205,43 @@ def _coset_powers(n: int, inverse: bool, device):
 
 
 def coset_evaluate(coeffs, expand: int = INV_RATE):
-    """Evaluate coefficients (N, ...) on the coset g * H_{expand*N}."""
+    """Evaluate coefficients (N, ...) on the coset g * H_{expand*N}: the
+    kernel reading the N rows and shifting as it loads on a CUDA tensor,
+    `coset_evaluate_plain` on the CPU."""
+    if coeffs.device.type == "cuda":
+        return _fused(coeffs, coeffs.shape[0] * expand, True,
+                      shift=F.GENERATOR)
+    return coset_evaluate_plain(coeffs, expand)
+
+
+def coset_evaluate_plain(coeffs, expand: int = INV_RATE):
+    """Plain torch `coset_evaluate` on any device: an eager shift into a
+    zero-padded buffer, then Stockham."""
     n = coeffs.shape[0]
     shift = _coset_powers(n, False, coeffs.device).reshape(
         (n,) + (1,) * (coeffs.dim() - 1))
     padded = torch.zeros((n * expand,) + coeffs.shape[1:], dtype=F.I32,
                          device=coeffs.device)
     padded[:n] = F.mul(coeffs, shift)
-    return ntt(padded)
+    return stockham(padded)
 
 
 def coset_interpolate(evals, expand: int = INV_RATE):
-    """Inverse of coset_evaluate: recover the low N coefficients."""
+    """Inverse of coset_evaluate: recover the low N coefficients (the
+    kernel with g^-k / N in its last store and only N rows stored on a
+    CUDA tensor, `coset_interpolate_plain` on the CPU)."""
+    if evals.device.type == "cuda":
+        big = evals.shape[0]
+        return _fused(evals, big, False, rows_out=big // expand,
+                      store=(pow(F.GENERATOR, F.P - 2, F.P),
+                             pow(big, F.P - 2, F.P)))
+    return coset_interpolate_plain(evals, expand)
+
+
+def coset_interpolate_plain(evals, expand: int = INV_RATE):
+    """Plain torch `coset_interpolate` on any device."""
     n = evals.shape[0] // expand
-    coeffs = intt(evals)[:n]
+    coeffs = intt_plain(evals)[:n]
     unshift = _coset_powers(n, True, evals.device).reshape(
         (n,) + (1,) * (evals.dim() - 1))
     return F.mul(coeffs, unshift)

@@ -356,8 +356,9 @@ def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
     items times its class divisor, interpolated on that subgrid; the parts
     are summed. `fused=True` (the reference's fused-kernel route,
     `stark.py:484-498`): one pass of the constraint kernel over the 4N
-    grid (`kernels/cons.py`), one masked alpha-combine per divisor class
-    (the union of that class's jobs: the combine is linear), each times
+    grid (`kernels/cons.evaluate_combined`), which returns one masked
+    alpha-combine per divisor class (the union of that class's jobs: the
+    combine is linear; on the card no (K, M) rows are stored), each times
     its 4N divisor table, summed and interpolated once. Every part has
     degree < its grid, so both give the same coefficients word for word.
     """
@@ -380,8 +381,6 @@ def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
         from ..air import cons_eval
         from ..kernels import cons as CK
 
-        rows = CK.evaluate(air, ctrl_evals, data_evals, accum_evals,
-                           globals_, pub)
         kinds = cons_eval.trace(air).kinds
         classes = {}
         for _, jobs in plan:
@@ -390,9 +389,9 @@ def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
                 for i in range(len(kinds)):
                     mask[i] = mask[i] or keep is None or bool(keep[i])
         order = sorted(classes)
-        combs = cons_eval.combine_rows(kinds, rows, alpha,
-                                       [classes[p] for p in order])
-        del rows
+        combs = CK.evaluate_combined(air, ctrl_evals, data_evals, accum_evals,
+                                     globals_, pub, alpha,
+                                     [classes[p] for p in order])
         return interpolate_parts(INV_RATE, zip(combs, order))
 
     def eval_grid(expand: int, jobs):

@@ -10,31 +10,38 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
   2. build    compiles the three kernel libraries with nvcc for sm_90a, one
               nvcc per library, all started together: the Poseidon2 sponge
               (csrc/poseidon2.cu), the NTT sub-transform (csrc/ntt.cu) and
-              the generated constraint kernels of both AIR variants
-              (kernels/cons.py); prints nvcc seconds, registers and spills.
-  3. kernel   each kernel against its plain torch version on the card, bit
+              the generated fused constraint kernels of both AIR variants
+              (kernels/cons.py), plus the issue-rate probe; prints nvcc
+              seconds, registers, spills and blocks per SM.
+  3. probe    independent chains of bb::mul and of bb::add on every SM:
+              achieved operations and 32-bit instructions per second beside
+              the published issue rate the bounds use.
+  4. kernel   each kernel against its plain torch version on the card, bit
               for bit (tolerance 0: field words). Sponge: N in {1, 1000,
               1024, 2^18} x C in {0, 7, 16, 384}, the main path's sponge
               shapes, pairs at 2^17 and transcript permutations. NTT: the
               sub-transform at M in {2, 64, 512, 1024} x L in {1, 7, 128,
               392}, both directions, with the four-step store; the whole
-              four-step at the main path's transforms (2^17 x {40, 392,
-              48} inverse, 2^19 x {40, 392, 48, 16} forward, 2^19 x 4
-              inverse). Times the sponge at the leaf shape and the NTT at
-              2^19 x 392 with CUDA events.
-  4. golden   the port's po2-8 TEST_PS proofs on the card equal the JAX
+              four-step at the main path's
+              transforms; the LDE glue the kernel folds in (coset_evaluate's
+              zero-skip shifted load, intt's and coset_interpolate's scaled
+              stores) at the main path's shapes. Times the sponge at the
+              leaf shape, the NTT at 2^19 x 392 (and each of its two
+              launches) and the data LDE with CUDA events.
+  5. golden   the port's po2-8 TEST_PS proofs on the card equal the JAX
               reference proofs stored in tests/data/torch_golden_po2_8.npz;
-              every kernel launched in them; the constraint kernel's rows
-              on both golden grids equal the plain version's.
-  5. main     the loop guest at po2 17 (as bench.py): executor -> witness
+              every kernel launched in them; the fused constraint kernel's
+              columns on both golden grids equal the plain version's.
+  6. main     the loop guest at po2 17 (as bench.py): executor -> witness
               (the native C++ generator) -> prove_segment (100 queries,
               rate 1/2, rv32i) on the card, verify_segment accepts it and
               rejects a tampered claim. The launch counts are zeroed just
               before the executor and read right after the proof: sponge,
               NTT and constraint kernels must each be > 0 (the verifier's
-              sponge launches are counted apart). Then the constraint
-              kernel against its plain version on the proof's own 4N grid,
-              all rows bit for bit, and both timed.
+              sponge launches are counted apart), and the eager α-combine
+              (`cons_eval.combine_rows`) must not have run. Then the fused
+              constraint kernel against its plain version on the proof's
+              own 4N grid, bit for bit, and both timed.
 The last two lines are the kernel table (each kernel's launches on the
 main path, max abs error, ms, plain ms and bound ms) and the contract line
 {"ok": true, "device": {...}}.
@@ -74,7 +81,17 @@ NTT_MAIN_SHAPES = ((1 << 17, 40, False), (1 << 17, 392, False),
                    (1 << 19, 392, True), (1 << 19, 48, True),
                    (1 << 19, 16, True), (1 << 19, 4, False))
 NTT_TIME_SHAPE = (1 << 19, 392)  # the data group's 4N evaluate
+# (glue, rows in, columns, expand) of the po2-17 rv32i proof: trace
+# interpolation (intt), the 4N LDEs, the check LDE at rate 1/2 and the
+# quotient's coset interpolation, with the kernel's folded loads/stores.
+NTT_GLUE_SHAPES = (("intt", 1 << 17, 392, 1),
+                   ("coset_evaluate", 1 << 17, 40, 4),
+                   ("coset_evaluate", 1 << 17, 392, 4),
+                   ("coset_evaluate", 1 << 17, 48, 4),
+                   ("coset_evaluate", 1 << 17, 16, 2),
+                   ("coset_interpolate", 1 << 19, 4, 1))
 MAIN_PO2 = 17
+INV_RATE_GRID = 4  # the constraint grid's blowup (the 4N LDE)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # 32-bit integer issue of one sm_90 SM per clock: 64 on the FMA-heavy pipe
 # (IMAD*), 64 on the ALU pipe (ISETP, IADD3, SEL) (CUDA C++ Programming
@@ -143,12 +160,15 @@ class Checker:
             raise AssertionError(f"{what}: kernel differs from plain torch")
 
 
-def bound_ms(nbytes: float, muls: float, adds: float, sm_clocks_per_s: float):
+def bound_ms(nbytes: float, muls: float, adds: float, sm_clocks_per_s: float,
+             extra=(0, 0, 0)):
     """The least time the card could take for `muls` Baby Bear products
-    and `adds` adds or subtracts over `nbytes` of memory traffic: the
-    larger of the bytes' time and the slowest of the FMA pipe, the ALU
-    pipe and the issue limit. -> (ms, "bytes" or "operations")."""
-    fma, alu, either = (muls * m + adds * a for m, a in zip(MUL_MIX, ADD_MIX))
+    and `adds` adds or subtracts (plus `extra` (FMA, ALU, either)
+    instructions) over `nbytes` of memory traffic: the larger of the
+    bytes' time and the slowest of the FMA pipe, the ALU pipe and the
+    issue limit. -> (ms, "bytes" or "operations")."""
+    fma, alu, either = (muls * m + adds * a + e
+                        for m, a, e in zip(MUL_MIX, ADD_MIX, extra))
     t_ops = max(fma / PIPE_PER_CLOCK_PER_SM, alu / PIPE_PER_CLOCK_PER_SM,
                 (fma + alu + either) / ISSUE_PER_CLOCK_PER_SM) / sm_clocks_per_s
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -185,7 +205,8 @@ def phase_build():
     from boundless_tpu_torch.kernels import poseidon2 as P2K
     from boundless_tpu_torch.zkvm import prove
 
-    jobs = {"bt_poseidon2": P2K._lib, "bt_ntt": NK._lib}
+    jobs = {"bt_poseidon2": P2K._lib, "bt_ntt": NK._lib,
+            "bt_issue_probe": probe_lib}
     for variant, air in prove._AIRS.items():
         jobs[f"bt_cons_{variant}"] = (lambda a=air: CK.build_kernels(a))
     errors = {}
@@ -204,6 +225,14 @@ def phase_build():
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
+    occupancy = {}
+    if not errors:
+        # blocks per SM of the NTT at its two four-step sizes and of each
+        # fused constraint kernel
+        occupancy["bt_ntt"] = (f"m1024:{NK.blocks_per_sm(10)},"
+                               f"m512:{NK.blocks_per_sm(9)}")
+        for variant, air in prove._AIRS.items():
+            occupancy[f"bt_cons_{variant}"] = CK.blocks_per_sm(air)
     for name in jobs:
         log = build.PTXAS_LOG.get(name, "")
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
@@ -212,11 +241,85 @@ def phase_build():
             nvcc_seconds=f"{build.BUILD_SECONDS.get(name, 0.0):.3f}",
             functions=len(regs), max_registers=max(regs, default=0),
             spill_store_bytes=sum(spills),
-            ok=name not in errors)
+            blocks_per_sm=occupancy.get(name, "-"), ok=name not in errors)
+    if "bt_ntt" in build.PTXAS_LOG:  # registers by sub-transform size
+        regs = re.findall(r"Compiling entry function '\S*sub_ntt_kernel"
+                          r"ILi(\d+)E\S*'.*?Used (\d+) registers",
+                          build.PTXAS_LOG["bt_ntt"], re.S)
+        say("build", library="bt_ntt",
+            registers_by_log_m=",".join(f"{lm}:{n}" for lm, n in regs))
     say("build", parallel_wall_seconds=f"{wall:.3f}")
     if errors:
         name, err = next(iter(errors.items()))
         raise RuntimeError(f"build of {name} failed") from err
+
+
+PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "babybear.cuh"
+// CHAINS independent chains a thread of one Baby Bear operation.
+constexpr int CHAINS = 8;
+template <int OP>
+__global__ void chains(uint32_t* x, unsigned iters) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t b = x[i] % bb::P;
+  uint32_t a[CHAINS];
+  for (int k = 0; k < CHAINS; ++k) a[k] = (x[i] + k) % bb::P;
+  for (unsigned t = 0; t < iters; ++t) {
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k)
+      a[k] = OP ? bb::add(a[k], b) : bb::mul(a[k], b);
+  }
+  uint32_t s = 0;
+  for (int k = 0; k < CHAINS; ++k) s ^= a[k];
+  x[i] = s;
+}
+extern "C" int bt_probe(int op, uint32_t* x, unsigned blocks,
+                        unsigned threads, unsigned iters, void* stream) {
+  if (op) chains<1><<<blocks, threads, 0, (cudaStream_t)stream>>>(x, iters);
+  else chains<0><<<blocks, threads, 0, (cudaStream_t)stream>>>(x, iters);
+  return (int)cudaGetLastError();
+}
+"""
+PROBE_CHAINS, PROBE_ITERS, PROBE_THREADS = 8, 2048, 256
+
+
+def probe_lib():
+    import ctypes
+
+    from boundless_tpu_torch.kernels import build
+
+    lib = build.load_source("bt_issue_probe", lambda: PROBE_SOURCE)
+    vp, u = ctypes.c_void_p, ctypes.c_uint
+    lib.bt_probe.argtypes = [ctypes.c_int, vp, u, u, u, vp]
+    lib.bt_probe.restype = ctypes.c_int
+    return lib
+
+
+def phase_probe(dev, sm_clocks_per_s):
+    """Achieved Baby Bear operations per second in independent chains on
+    every SM, and the 32-bit instructions per second they imply at the
+    bound's mix (MUL_MIX, ADD_MIX), beside the published issue rate."""
+    lib = probe_lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = sms * 2048 // PROBE_THREADS  # every SM full of threads
+    x = torch.arange(blocks * PROBE_THREADS, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ops = blocks * PROBE_THREADS * PROBE_ITERS * PROBE_CHAINS
+    for op, name, mix in ((0, "mul", MUL_MIX), (1, "add", ADD_MIX)):
+        def run():
+            rc = lib.bt_probe(op, x.data_ptr(), blocks, PROBE_THREADS,
+                              PROBE_ITERS, stream)
+            if rc:
+                raise RuntimeError(f"probe launch failed: CUDA error {rc}")
+        ms = cuda_ms(run, 5)
+        per_s = ops / (ms * 1e-3)
+        say("probe", op=name, chains_per_thread=PROBE_CHAINS,
+            threads=blocks * PROBE_THREADS, ms=f"{ms:.4f}",
+            ops_per_s=f"{per_s:.4e}", instructions_per_op=sum(mix),
+            int32_instructions_per_s=f"{per_s * sum(mix):.4e}",
+            published_issue_per_s=f"{sm_clocks_per_s * ISSUE_PER_CLOCK_PER_SM:.4e}")
 
 
 def phase_kernel_sponge(dev, sm_clocks_per_s):
@@ -264,7 +367,7 @@ def phase_kernel_ntt(dev, sm_clocks_per_s):
             for fw in (True, False):
                 check(NK.sub_ntt(x, fw), NTT.stockham(x, fw),
                       f"sub_ntt M={m} L={lanes} forward={fw}")
-            n2 = 7 if lanes % 7 == 0 else 1
+            n2 = 7 if lanes % 7 == 0 else (32 if lanes % 32 == 0 else 1)
             mid = rand_words(rng, (m, n2), dev)
             check(NK.sub_ntt(x, True, mid), NK.sub_ntt_plain(x, True, mid),
                   f"sub_ntt M={m} L={lanes} four-step store")
@@ -272,6 +375,17 @@ def phase_kernel_ntt(dev, sm_clocks_per_s):
         x = rand_words(rng, (n, c), dev)
         check(NTT.ntt(x, fw), NTT.stockham(x, fw),
               f"four-step N={n} C={c} forward={fw}")
+    glue = {"intt": (NTT.intt, NTT.intt_plain),
+            "coset_evaluate": (NTT.coset_evaluate, NTT.coset_evaluate_plain),
+            "coset_interpolate": (NTT.coset_interpolate,
+                                  NTT.coset_interpolate_plain)}
+    for name, n, c, expand in NTT_GLUE_SHAPES:
+        x = rand_words(rng, (n, c), dev)
+        fused, plain = glue[name]
+        args = () if name == "intt" else (expand,)
+        check(fused(x, *args), plain(x, *args),
+              f"{name} N={n} C={c} expand={expand}")
+
     n, c = NTT_TIME_SHAPE
     x = rand_words(rng, NTT_TIME_SHAPE, dev)
     before = NK.LAUNCHES
@@ -280,12 +394,28 @@ def phase_kernel_ntt(dev, sm_clocks_per_s):
     ms = cuda_ms(lambda: NTT.ntt(x), 10)
     plain_ms = cuda_ms(lambda: NTT.stockham(x), 2)
     butterflies = c * (n // 2) * (n.bit_length() - 1)
-    bms, by = bound_ms(2 * 4 * n * c, butterflies, 2 * butterflies,
-                       sm_clocks_per_s)
+    nbytes = 2 * 4 * n * c  # the input read once, the output written once
+    bms, by = bound_ms(nbytes, butterflies, 2 * butterflies, sm_clocks_per_s)
+    floor = per_call * nbytes / HBM_BYTES_PER_S * 1e3  # each launch's pass
+    # each launch of the four-step alone: the first with the mid twiddle
+    # and the transposed store, the second a plain sub-transform
+    n1, n2 = NTT._split(n)
+    first = x.reshape(n1, n2 * c)
+    mid = NTT._mid_twiddles(n1, n2, True, dev)
+    first_ms = cuda_ms(lambda: NK.sub_ntt(first, True, mid), 10)
+    second = NK.sub_ntt(first, True, mid)
+    second_ms = cuda_ms(lambda: NK.sub_ntt(second, True), 10)
+    coeffs = rand_words(rng, (n // INV_RATE_GRID, c), dev)
+    lde_ms = cuda_ms(lambda: NTT.coset_evaluate(coeffs), 10)
+    lde_plain_ms = cuda_ms(lambda: NTT.coset_evaluate_plain(coeffs), 2)
     say("kernel", kernel="ntt_sub_transform", checked=check.checked,
         tolerance=0, max_abs_err=check.max_err, shape=f"{n}x{c}",
-        launches_per_transform=per_call, kernel_ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+        launches_per_transform=per_call, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bms:.4f}", bound_by=by, floor_ms_two_launches=f"{floor:.4f}",
+        launch_ms=f"{n1}x{n2 * c}+mid:{first_ms:.4f},{n2}x{n1 * c}:"
+                  f"{second_ms:.4f}",
+        lde_shape=f"{n // INV_RATE_GRID}x{c}->{n}", lde_ms=f"{lde_ms:.4f}",
+        lde_plain_ms=f"{lde_plain_ms:.4f}")
     return dict(max_abs_err=check.max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by)
 
@@ -296,25 +426,61 @@ class CaptureCons:
     def __enter__(self):
         from boundless_tpu_torch.kernels import cons as CK
 
-        self.calls, self._ck, self._orig = [], CK, CK.evaluate
+        self.calls, self._ck, self._orig = [], CK, CK.evaluate_combined
 
-        def evaluate(air, *args):
+        def evaluate_combined(air, *args):
             self.calls.append((air, args))
             return self._orig(air, *args)
 
-        CK.evaluate = evaluate
+        CK.evaluate_combined = evaluate_combined
         return self
 
     def __exit__(self, *exc):
-        self._ck.evaluate = self._orig
+        self._ck.evaluate_combined = self._orig
+
+
+class ForbidCombineRows:
+    """Counts calls of the eager α-combine (`cons_eval.combine_rows`) while
+    active: the card's route must not make any."""
+
+    def __enter__(self):
+        from boundless_tpu_torch.air import cons_eval as CE
+
+        self.calls, self._ce, self._orig = 0, CE, CE.combine_rows
+
+        def combine_rows(*args, **kwargs):
+            self.calls += 1
+            return self._orig(*args, **kwargs)
+
+        CE.combine_rows = combine_rows
+        return self
+
+    def __exit__(self, *exc):
+        self._ce.combine_rows = self._orig
+
+
+def plain_combined(air, args):
+    """The fused kernel's plain version: combine_rows of the plain rows."""
+    from boundless_tpu_torch.air import cons_eval as CE
+    from boundless_tpu_torch.kernels import cons as CK
+
+    *grid, alpha, masks = args
+    return CE.combine_rows(CE.trace(air).kinds, CK.evaluate_plain(air, *grid),
+                           alpha, masks)
 
 
 def check_cons(calls, check, what):
     from boundless_tpu_torch.kernels import cons as CK
 
     for air, args in calls:
-        check(CK.evaluate(air, *args), CK.evaluate_plain(air, *args),
-              f"constraint rows {air.name} {what} M={args[1].shape[0]}")
+        got = CK.evaluate_combined(air, *args)
+        want = plain_combined(air, args)
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} class columns, plain "
+                                 f"{len(want)}")
+        for k, (g, w) in enumerate(zip(got, want)):
+            check(g, w, f"constraint columns {air.name} {what} "
+                  f"M={args[1].shape[0]} class {k}")
 
 
 def counts():
@@ -375,7 +541,8 @@ def phase_golden(dev, cons_check):
                              f"proofs: {launched}")
     check_cons(cap.calls, cons_check, "golden po2 8")
     say("golden", launches=json.dumps(launched).replace(" ", ""),
-        constraint_grids_checked=len(cap.calls), tolerance=0,
+        constraint_grids_checked=len(cap.calls),
+        class_columns=[len(args[-1]) for _, args in cap.calls], tolerance=0,
         max_abs_err=cons_check.max_err)
 
 
@@ -390,7 +557,7 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     iters = ((1 << MAIN_PO2) - 40) // 2
     torch.cuda.reset_peak_memory_stats()
     native_before = prove.NATIVE_WITNESSES
-    with CaptureCons() as cap:
+    with CaptureCons() as cap, ForbidCombineRows() as eager:
         zero_counts()
         t0 = time.perf_counter()
         res = Executor(image, guests.words([iters]),
@@ -409,6 +576,9 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     peak = torch.cuda.max_memory_allocated()
     if min(launches.values()) <= 0:
         raise AssertionError(f"prove_segment skipped a kernel: {launches}")
+    if eager.calls:
+        raise AssertionError(f"the card's proof ran the eager α-combine "
+                             f"combine_rows {eager.calls} times")
     if prove.NATIVE_WITNESSES != native_before + 1:
         raise AssertionError("the witness did not come from the native C++ "
                              "generator")
@@ -435,7 +605,8 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
         proved_mcycles_per_s=f"{seg.cycles / t_prove / 1e6:.6f}",
         max_memory_allocated=peak, witness="native",
         launches=json.dumps(launches).replace(" ", ""),
-        verify_sponge_launches=verify_launches, tampered="rejected")
+        verify_sponge_launches=verify_launches, tampered="rejected",
+        eager_combine_rows_calls=eager.calls)
 
     # The constraint kernel on the proof's own 4N grid.
     if len(cap.calls) != 1:
@@ -443,21 +614,37 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
                              f"the proof, expected 1")
     check_cons(cap.calls, cons_check, f"main po2 {MAIN_PO2}")
     air, args = cap.calls[0]
-    pubvec = air.cons_pub_pack(args[4], args[3])  # (pub, globals_)
-    ms = cuda_ms(lambda: CK.launch(air, *args[:3], pubvec), 5)
-    wrapper_ms = cuda_ms(lambda: CK.evaluate(air, *args), 3)
-    plain_ms = cuda_ms(lambda: CK.evaluate_plain(air, *args), 1)
+    ctrl, data, accum, globals_, pub, alpha, masks = args
     prog = CE.trace(air)
-    m = args[1].shape[0]
+    pubvec = air.cons_pub_pack(pub, globals_)
+    weights = CE.alpha_weight_rows(prog.kinds, alpha)
+    sels = CK.selectors(prog, masks)
+    ms = cuda_ms(lambda: CK.launch(air, ctrl, data, accum, pubvec, weights,
+                                   sels), 5)
+    wrapper_ms = cuda_ms(lambda: CK.evaluate_combined(air, *args), 3)
+    pack_ms = cuda_ms(lambda: air.cons_pub_pack(pub, globals_), 3)
+    weights_ms = cuda_ms(lambda: CE.alpha_weight_rows(prog.kinds, alpha), 3)
+    plain_ms = cuda_ms(lambda: plain_combined(air, args), 1)
+    m = data.shape[0]
     muls, adds = CK.field_ops(prog)
-    bms, by = bound_ms(4 * m * (sum(prog.cols) + len(prog.outputs)),
-                       m * muls, m * adds, sm_clocks_per_s)
+    comb = CK.combine_counts(prog)
+    # the combine as the kernel does it: one IMAD.WIDE a product, a fold is
+    # an IMAD.WIDE and a move, a final reduction a Montgomery product
+    extra = tuple(m * (comb["products"] * p + comb["folds"] * f
+                       + comb["reductions"] * r)
+                  for p, f, r in zip((1, 0, 0), (1, 0, 1), MUL_MIX))
+    nbytes = 4 * m * (sum(prog.cols) + 4 * len(sels))
+    bms, by = bound_ms(nbytes, m * muls, m * adds, sm_clocks_per_s, extra)
     say("kernel", kernel="cons_eval", variant=air.name, grid_rows=m,
         rows=len(prog.outputs), chunks=len(CK.chunks(prog)),
-        products_per_row=muls, adds_per_row=adds, checked=cons_check.checked,
+        class_columns=len(sels), products_per_row=muls, adds_per_row=adds,
+        combine_products_per_row=comb["products"],
+        combine_folds_per_row=comb["folds"], checked=cons_check.checked,
         tolerance=0, max_abs_err=cons_check.max_err, kernel_ms=f"{ms:.4f}",
         wrapper_ms_with_public_pack=f"{wrapper_ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+        public_pack_ms=f"{pack_ms:.4f}", weights_ms=f"{weights_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+        blocks_per_sm=CK.blocks_per_sm(air), warps_per_block=CK.WARPS)
     cons = dict(max_abs_err=cons_check.max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by)
     return launches, cons
@@ -479,6 +666,7 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
+    phase_probe(dev, sm_clocks_per_s)
     stats = {"poseidon2_sponge": phase_kernel_sponge(dev, sm_clocks_per_s),
              "ntt_sub_transform": phase_kernel_ntt(dev, sm_clocks_per_s)}
     cons_check = Checker()

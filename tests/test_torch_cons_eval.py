@@ -10,7 +10,8 @@
    inputs as tests/test_pallas_cons.py builds them; that slow test holds
    the JAX combine equal to the Pallas kernel).
 3. The generated CUDA text is deterministic, does not change with the
-   publics, and every chunk is within the op budget.
+   publics, and every chunk (one device function of the one fused
+   kernel) is within the op budget.
 Exact equality throughout (field words)."""
 
 import numpy as np
@@ -160,5 +161,6 @@ def test_generated_source_is_fixed_and_within_budget(grid, variant):
     for (lo, hi, ids), nxt in zip(parts, parts[1:] + [None]):
         assert lo < hi and (nxt is None or nxt[0] == hi)
         assert sum(prog.nodes[i][0] in CE.ARITH for i in ids) <= CK.OP_BUDGET
-    assert sources[0].count("__global__") == len(parts)
+    assert sources[0].count("__global__") == 1  # one fused kernel
+    assert sources[0].count("__noinline__ Acc cons_") == len(parts)
     assert f"bt_cons_rows() {{ return {len(prog.outputs)}; }}" in sources[0]

@@ -1,5 +1,5 @@
 """The CUDA NTT and constraint kernels against their plain versions, on the
-card.
+card (every NTT option; the fused constraint kernel's α-combined columns).
 
 Marked `cuda`: the kernels have no CPU mode, so these skip on a host
 without an NVIDIA GPU. They import no JAX; run them on a GPU host (which
@@ -50,11 +50,46 @@ def test_sub_ntt_equals_plain(dev, m, lanes):
                        NK.sub_ntt_plain(x, True, mid))
 
 
+@pytest.mark.parametrize("m,rows_in,lanes,inner", [
+    (1, 1, 3, 3), (2, 1, 4, 2), (64, 16, 12, 4), (512, 128, 392, 392),
+    (NK.MAX_M, 256, 40, 40), (NK.MAX_M, 1024, 33, 3),
+    (NK.MAX_M, 1024, 64, 8), (256, 64, 48, 12)])
+def test_sub_ntt_options_equal_plain(dev, m, rows_in, lanes, inner):
+    """The load zero tail and shift, the store scale and row cut, and the
+    transposed store (staged when inner divides W)."""
+    x = words((rows_in, lanes), m + lanes, dev)
+    q = lanes // inner
+    opts = dict(m=m, inner=inner, load=(words((m,), 1, dev),
+                                        words((q,), 2, dev)),
+                store=(words((m,), 3, dev), words((q,), 4, dev)),
+                rows_out=max(1, m // 2))
+    for forward in (True, False):
+        assert torch.equal(NK.sub_ntt(x, forward, **opts),
+                           NK.sub_ntt_plain(x, forward, **opts))
+    full = words((m, lanes), lanes, dev)
+    mid = words((m, q), 5, dev)
+    assert torch.equal(NK.sub_ntt(full, True, mid),
+                       NK.sub_ntt_plain(full, True, mid))
+    assert NK.blocks_per_sm(m.bit_length() - 1) >= 1
+
+
 @pytest.mark.parametrize("n,c", [(1 << 12, 3), (1 << 17, 5), (1 << 21, 1)])
 def test_four_step_equals_stockham(dev, n, c):
     x = words((n, c), n, dev)
     for forward in (True, False):
         assert torch.equal(NTT.ntt(x, forward), NTT.stockham(x, forward))
+
+
+@pytest.mark.parametrize("n,c,expand", [(256, 5, 4), (1 << 12, 4, 4),
+                                        (1 << 17, 16, 2), (1 << 19, 1, 4)])
+def test_fused_glue_equals_plain(dev, n, c, expand):
+    x = words((n, c), n + c, dev)
+    before = NK.LAUNCHES
+    ev = NTT.coset_evaluate(x, expand)
+    assert NK.LAUNCHES > before
+    assert torch.equal(ev, NTT.coset_evaluate_plain(x, expand))
+    assert torch.equal(NTT.coset_interpolate(ev, expand), x)
+    assert torch.equal(NTT.intt(ev), NTT.intt_plain(ev))
 
 
 def test_ntt_wrapper_rejects_bad_inputs(dev):
@@ -71,6 +106,8 @@ def test_ntt_wrapper_rejects_bad_inputs(dev):
 
 @pytest.mark.parametrize("variant", ["rv32i", "rv32im"])
 def test_constraint_kernel_equals_plain(dev, variant):
+    """The fused kernel's α-combined columns, two classes and one, equal
+    `combine_rows` of the plain rows."""
     po2 = 6
     image = guests.loop_guest()
     seg = Executor(image, guests.words([3]), segment_po2=po2).run().segments[0]
@@ -83,10 +120,21 @@ def test_constraint_kernel_equals_plain(dev, variant):
     evals = [NTT.coset_evaluate(NTT.interpolate(x)).contiguous()
              for x in (ctrl, data, accum)]
     pub = W.to_public_values(w.pub, dev)
-    before = CK.LAUNCHES
-    got = CK.evaluate(air, *evals, globals_, pub)
-    assert CK.LAUNCHES == before + len(CK.chunks(CK.CE.trace(air)))
-    assert torch.equal(got, CK.evaluate_plain(air, *evals, globals_, pub))
+    prog = CK.CE.trace(air)
+    trans = [bool(z) for z in prog.zclass]
+    alpha = F.ext([5, 6, 7, 8], dev)
+    for masks in ([trans, [not z for z in trans]], [None]):
+        before = CK.LAUNCHES
+        got = CK.evaluate_combined(air, *evals, globals_, pub, alpha, masks)
+        assert CK.LAUNCHES == before + 1
+        want = CK.CE.combine_rows(
+            prog.kinds, CK.evaluate_plain(air, *evals, globals_, pub), alpha,
+            masks)
+        assert len(got) == len(want)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
     with pytest.raises(ValueError):
-        CK.evaluate(air, evals[0][:, :-1].contiguous(), *evals[1:], globals_,
-                    pub)
+        CK.evaluate_combined(air, evals[0][:, :-1].contiguous(), *evals[1:],
+                             globals_, pub, alpha, [None])
+    with pytest.raises(ValueError):
+        CK.evaluate(air, *evals, globals_, pub)  # rows: CPU only
+    assert CK.blocks_per_sm(air) >= 1

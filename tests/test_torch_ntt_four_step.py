@@ -82,6 +82,10 @@ def test_mid_twiddles_match_jax():
         np.testing.assert_array_equal(
             got.numpy().astype(np.int64),
             JNP._mid_twiddles(n1, n2, forward).astype(np.int64))
+        # the kernel's one power table, read at the radix-2 stage indices
+        pows = NK.pow_table(n1, forward).astype(np.int64)
+        flat = np.concatenate([np.zeros(1, np.int64)] + [
+            pows[np.arange(1 << t) * (n1 >> (t + 1))]
+            for t in range(n1.bit_length() - 1)])
         np.testing.assert_array_equal(
-            NK._flat_twiddles(n1, forward).astype(np.int64),
-            JNP._stage_tables_flat(n1, forward).ravel().astype(np.int64))
+            flat, JNP._stage_tables_flat(n1, forward).ravel().astype(np.int64))

@@ -13,7 +13,7 @@ The loop guest at `--po2` (as `chip_smoke.py` and the reference's
 3. `torch.profiler` over one more proof with the wrappers taken off: device
    kernel seconds, the device busy share (kernel seconds / profiled wall),
    the launches of each hand-written kernel (sponge, NTT sub-transform,
-   constraint chunks) and the top operators by device time.
+   fused constraint kernel) and the top operators by device time.
 
 Prints the card's `nvidia-smi` name, power limit, SM clock and power draw
 first. Needs a CUDA card; exits non-zero without one.
@@ -52,15 +52,16 @@ STAGES = (
     (P2K, "_sponge", "sponge kernel calls"),
     (NTT, "ntt", "ntt (all transforms)"),
     (NK, "sub_ntt", "NTT sub-transform kernel calls"),
-    (CK, "evaluate", "constraint kernels (4N grid)"),
-    (stark, "_quotient_coeffs", "quotient (kernel + combine + interp.)"),
+    (CK, "evaluate_combined",
+     "fused constraint kernel + alpha-combine (evaluate_combined)"),
+    (stark, "_quotient_coeffs", "quotient (fused kernel + interpolation)"),
     (NTT, "eval_poly_ext", "DEEP taps (eval_poly_ext)"),
     (stark, "_deep_combo_evals", "DEEP combination"),
     (fri, "prove", "fri.prove"),
     (bbmm, "bb_weighted_sum", "bb_weighted_sum (all)"),
     (F, "ext_inv", "ext_inv (all)"),
     (stark, "combine_constraints", "alpha-combine (combine_constraints)"),
-    (cons_eval, "combine_rows", "alpha-combine of kernel rows"),
+    (cons_eval, "combine_rows", "eager alpha-combine of rows (CPU route)"),
     (rv32im.Rv32imAir, "constraints", "air.constraints (eager)"),
     (rv32im.Rv32imAir, "accum_trace", "accum_trace"),
 )
@@ -153,7 +154,7 @@ def main():
           f"{device_s} s; busy share {device_s / wall}; launches {launches}")
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:  # the hand-written kernels, by their CUDA names
-        for key in ("sponge_kernel", "sub_ntt_kernel", "::cons_"):
+        for key in ("sponge_kernel", "sub_ntt_kernel", "cons_fused"):
             if key in e.name:
                 by_name[key][0] += e.device_time_total / 1e6
                 by_name[key][1] += 1

@@ -14,11 +14,13 @@ out):
    count less an empty kernel's, over 64): the per-operation mix that
    `chip_smoke.py`'s bounds use (`MUL_MIX`, `ADD_MIX`);
 2. `[lib]` the static count of every function of each library;
-3. `[cons]` for the generated constraint kernels, whose functions are
-   straight-line code run once per row, the instructions one row executes
-   in all its chunks, beside the bound's model applied to the traced
-   program (each live node once) and to the chunks (each chunk's cone,
-   nodes two chunks share counted in both).
+3. `[cons]` for the generated fused constraint kernels, whose chunk
+   functions are straight-line code run once per row, the instructions
+   of one row in all of them (the tile's staging loop counted once, not
+   per trip), beside the bound's model applied to the traced program
+   (each live node once), to the chunks (each chunk's cone, nodes two
+   chunks share counted in both) and to the α-combine as the kernel does
+   it (`kernels/cons.combine_counts`).
 
 Needs the CUDA toolkit (nvcc, cuobjdump) and a host with torch; no card is
 used.
@@ -128,14 +130,20 @@ def main():
         row = sum(sass(libs[f"bt_cons_{variant}"]._name).values(),
                   collections.Counter())
         chunk_ops = collections.Counter()
-        for _, _, ids in CK.chunks(prog):
-            chunk_ops.update(prog.nodes[i][0] for i in ids)
+        for _, _, steps in CK.schedule(prog):
+            chunk_ops.update(prog.nodes[st[1]][0] for st in steps
+                             if st[0] == "node")
         chunked = model(chunk_ops[CE.MUL], chunk_ops[CE.ADD]
                         + chunk_ops[CE.SUB] + chunk_ops[CE.NEG])
         print(f"[cons] variant={variant} sass_per_row: {fmt(row)}", flush=True)
         print(f"[cons] variant={variant} model_live: "
               f"{fmt(model(*CK.field_ops(prog)))}", flush=True)
         print(f"[cons] variant={variant} model_chunks: {fmt(chunked)}",
+              flush=True)
+        comb = CK.combine_counts(prog)
+        fma, alu, either = model(comb["reductions"], 0).values()
+        print(f"[cons] variant={variant} model_combine: "
+              f"{fmt({'fma': comb['products'] + comb['folds'] + fma, 'alu': alu, 'either': comb['folds'] + either})}",
               flush=True)
 
 
