@@ -407,6 +407,10 @@ class Air:
     accum_cols = 0
     globals_count = 0
     max_degree = 2
+    # True iff the prover may evaluate the quotient through the generated
+    # constraint kernel (kernels/cons.py) on the card; such an AIR
+    # provides `cons_pub_pack` / `cons_pub_unpack`.
+    fused_cons = False
 
     def zk_rows(self, po2: int) -> int:
         """Blinded (free random) tail rows per trace; 0 = no blinding."""

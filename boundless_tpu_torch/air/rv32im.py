@@ -10,8 +10,10 @@ in place of the reference's associative scan: field addition is exact, so
 every scan order gives the same words). The reference's fused-kernel
 public-input hooks (`pallas_pub_pack`/`unpack`) are here as
 `cons_pub_pack`/`cons_pub_unpack`, for the CUDA constraint kernel
-(`air/cons_eval.py`, `kernels/cons.py`), which every proof on the card
-runs. The recursion wire-algebra branch is not ported.
+(`air/cons_eval.py`, `kernels/cons.py`), which this AIR's proofs on the
+card run (`fused_cons`). The wire-algebra branch (`is_prog`,
+`_public_logup_sum_prog`) lets the recursion lift program evaluate
+`constraints` in-circuit (`recursion/programs.py`).
 
 Variants: `Rv32imAir(True)` is the full RV32IM layout (584 data columns,
 keccak burst machinery), `Rv32imAir(False)` the RV32I prefix (392).
@@ -288,7 +290,7 @@ class PublicValues:
 
 def _pack(alg, gamma, dpows, tag: int, comps_group):
     """gamma - (tag + Σ_j delta^{j+1} * x_j); comps_group is a group."""
-    if hasattr(alg, "gsize"):  # degree algebra
+    if hasattr(alg, "gsize"):  # degree and wire algebras
         g = alg.gsize(comps_group)
     else:
         g = comps_group.shape[-1] if not alg.is_ext else comps_group.shape[0]
@@ -478,6 +480,46 @@ def public_logup_sum(pub: PublicValues, gamma, delta):
     return total
 
 
+def _public_logup_sum_prog(alg, pub, gamma, delta):
+    """S_pub in the wire algebra (recursion/programs.ProgAlg): pub.io is a
+    list of IO_MAX [tag, seq, lo, hi, mask] wire rows, pub.cpio of [seq,
+    lo, hi, mask] rows and pub.mem of MEM_PAGES page entries (the lift
+    program's `_WireRv32Pub`). The recursion circuit evaluates the formula
+    of `public_logup_sum` with one INV op per row; pad rows have den =
+    gamma != 0, so the inverse exists."""
+    p = alg.p
+    dpows = alg.ext_powers(delta, 4)
+    total = None
+    for row in pub.io:
+        tag, seq, lo, hi, mask = row
+        acc = tag
+        for j, x in enumerate((seq, lo, hi)):
+            acc = p.add(acc, p.mul(dpows[j + 1], x))
+        inv_w = p.inv(p.sub(gamma, acc))
+        term = p.mul(mask, inv_w)
+        total = term if total is None else p.add(total, term)
+    for row in pub.cpio:
+        seq, lo, hi, mask = row
+        acc = p.addc(p.add(p.mul(dpows[1], seq),
+                           p.add(p.mul(dpows[2], lo),
+                                 p.mul(dpows[3], hi))),
+                     (TAG["cpio"], 0, 0, 0))
+        total = p.add(total, p.mul(mask, p.inv(p.sub(gamma, acc))))
+    for page in pub.mem:
+        base = p.mul(page["page_idx"], p.const(PAGE_WORDS))
+        for w, slot in enumerate(page["words"]):
+            wmask, pre_lo, pre_hi, post_lo, post_hi = slot
+            addr = p.addc(base, (w, 0, 0, 0)) if w else base
+            for tag_name, lo_w, hi_w in (("init", pre_lo, pre_hi),
+                                         ("final", post_lo, post_hi)):
+                acc = p.addc(p.add(p.mul(dpows[1], addr),
+                                   p.add(p.mul(dpows[2], lo_w),
+                                         p.mul(dpows[3], hi_w))),
+                             (TAG[tag_name], 0, 0, 0))
+                total = p.add(total, p.mul(wmask, p.inv(p.sub(gamma, acc))))
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Row accessors
 # ---------------------------------------------------------------------------
@@ -568,6 +610,7 @@ class Rv32imAir(dsl.Air):
     # The kernel evaluates `constraints` traced once into a program whose
     # row-independent inputs (globals, S_pub, boundary publics) travel as
     # one packed vector, so the program never depends on a public value.
+    fused_cons = True  # the reference's `pallas_cons_ok`
     PUB_VEC_WORDS = 256
 
     def cons_pub_pack(self, pub: PublicValues, globals_):
@@ -1370,7 +1413,9 @@ class Rv32imAir(dsl.Air):
         c.append_t(ExtVal(alg.escale(
             alg.esub(alg.esub(R_nxt, R_now), t_next), not_last)))
         c.append_t(ExtVal(alg.escale(alg.esub(R_now, t_now), is_first)))
-        if getattr(alg, "s_pub_const", None) is not None:
+        if getattr(alg, "is_prog", False):
+            s_pub = _public_logup_sum_prog(alg, pub, gamma, delta)
+        elif getattr(alg, "s_pub_const", None) is not None:
             # the degree algebra has no field values
             s_pub = alg.s_pub_const
         else:

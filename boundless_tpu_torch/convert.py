@@ -1,10 +1,10 @@
 """numpy <-> port converters for every array the prover carries across.
 
-A proof, its public values and the Poseidon2 tables are this system's
-"weights": tests move them between the JAX package and the port as numpy
-arrays of Montgomery words. The flat proof dictionary is keyed by field
-path (`open_data.rows`, `fri_proof.round_roots.0`, ...) so that a proof of
-either package flattens to the same keys. This module imports no JAX: it
+A proof, its public values, the Poseidon2 tables and the recursion
+receipts are this system's "weights": tests move them between the JAX
+package and the port as numpy arrays. The flat proof dictionary is keyed
+by field path (`open_data.rows`, `fri_proof.round_roots.0`, ...) so that
+a proof of either package flattens to the same keys. This module imports no JAX: it
 reads leaves through `numpy.asarray`.
 """
 
@@ -20,6 +20,7 @@ from .core import field as F
 from .core import fri
 from .core import poseidon2 as P2
 from .prover import stark
+from .recursion import claims, succinct
 
 _OPENINGS = ("open_ctrl", "open_data", "open_accum", "open_check")
 _FRI_LISTS = ("round_roots", "round_rows", "round_paths")
@@ -101,3 +102,44 @@ def poseidon2_constants() -> tuple:
     ext_rc, int_rc, mu = P2.constants()
     return (ext_rc.astype(np.uint32), int_rc.astype(np.uint32),
             mu.astype(np.uint32))
+
+
+_CLAIM_FIELDS = [f.name for f in dataclasses.fields(claims.Claim)]
+
+
+def claim_to_numpy(claim) -> dict:
+    """Claim (either package) -> {field: int64 array} (canonical words)."""
+    return {k: np.asarray(getattr(claim, k), dtype=np.int64)
+            for k in _CLAIM_FIELDS}
+
+
+def claim_from_numpy(flat: dict) -> claims.Claim:
+    """Inverse of `claim_to_numpy`: ints stay ints, words become tuples."""
+    return claims.Claim(**{
+        k: (int(flat[k]) if flat[k].ndim == 0
+            else tuple(int(x) for x in flat[k])) for k in _CLAIM_FIELDS})
+
+
+def rec_receipt_to_numpy(r) -> dict:
+    """RecReceipt (either package) -> {key: array}: kind, po2, pub_vals,
+    `claim.<field>` and `proof.<field path>` (Montgomery words)."""
+    out = {"kind": np.array(r.kind), "po2": np.array(int(r.po2)),
+           "pub_vals": np.asarray(r.pub_vals, dtype=np.int64)}
+    out.update({f"claim.{k}": v for k, v in claim_to_numpy(r.claim).items()})
+    out.update({f"proof.{k}": v
+                for k, v in proof_to_numpy(r.proof).items()})
+    return out
+
+
+def rec_receipt_from_numpy(flat: dict, device="cpu") -> succinct.RecReceipt:
+    """Inverse of `rec_receipt_to_numpy`, building the port's RecReceipt
+    with its proof on `device`."""
+    sub = lambda pre: {k[len(pre):]: v for k, v in flat.items()  # noqa: E731
+                       if k.startswith(pre)}
+    proof = sub("proof.")
+    return succinct.RecReceipt(
+        kind=str(flat["kind"]),
+        proof=proof_from_numpy(proof, device) if proof else None,
+        claim=claim_from_numpy(sub("claim.")),
+        pub_vals=tuple(int(x) for x in flat["pub_vals"]),
+        po2=int(flat["po2"]))

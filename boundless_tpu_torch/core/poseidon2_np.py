@@ -1,8 +1,9 @@
 """Pure-numpy Poseidon2 (canonical domain) for host-side hashing.
 
 Counterpart of `boundless_tpu/core/poseidon2_np.py`, on the port's
-constants: the executor's keccak claim digest hashes here, with no device
-dispatch. Bit-identical to `core/poseidon2.py` after `from_mont`.
+constants: the executor's keccak claim digest, the recursion claims and
+the memory page tree hash here, with no device dispatch. Bit-identical
+to `core/poseidon2.py` after `from_mont`.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ WIDTH = P2.WIDTH
 RATE = P2.RATE
 
 _EXT_RC, _INT_RC, _MU = P2.canonical_constants()
-_M4 = np.array([[5, 7, 1, 3], [4, 6, 1, 1], [1, 3, 5, 7], [1, 1, 4, 6]],
+M4 = np.array([[5, 7, 1, 3], [4, 6, 1, 1], [1, 3, 5, 7], [1, 1, 4, 6]],
                dtype=np.int64)
 
 
@@ -28,7 +29,7 @@ def _external_linear_np(state):
     s = state.reshape(*state.shape[:-1], 6, 4)
     tot = s.sum(axis=-2) % P
     y = (s + tot[..., None, :]) % P
-    return (np.einsum("ij,...j->...i", _M4, y) % P).reshape(state.shape)
+    return (np.einsum("ij,...j->...i", M4, y) % P).reshape(state.shape)
 
 
 def _sbox7(x):
@@ -64,3 +65,12 @@ def hash_elems_np(elems: Sequence[int]) -> tuple:
         st[:RATE] = (st[:RATE] + pad[b * RATE:(b + 1) * RATE]) % P
         st = permute_np(st)
     return tuple(int(x) for x in st[:8])
+
+
+def hash_pair_np(left: Sequence[int], right: Sequence[int]) -> tuple:
+    """2-to-1 compression of two 8-word digests (one block absorbing
+    left || right; `poseidon2.hash_pair` after `from_mont`)."""
+    st = np.zeros(WIDTH, dtype=np.int64)
+    st[:8] = np.asarray(list(left), dtype=np.int64) % P
+    st[8:16] = np.asarray(list(right), dtype=np.int64) % P
+    return tuple(int(x) for x in permute_np(st)[:8])

@@ -38,9 +38,11 @@ class Transcript:
         self.mix_digest(P2K.hash_rows(elems.reshape(1, -1))[0])
 
     def mix_pub(self, pub):
-        """Absorb a public-values dataclass: the hash of its fields
-        flattened in declaration order (the JAX pytree leaf order)."""
-        leaves = [getattr(pub, f.name) for f in dataclasses.fields(pub)]
+        """Absorb public values, a dataclass of tensors or one tensor: the
+        hash of the fields flattened in declaration order (the JAX pytree
+        leaf order)."""
+        leaves = ([pub] if isinstance(pub, torch.Tensor) else
+                  [getattr(pub, f.name) for f in dataclasses.fields(pub)])
         flat = torch.cat([x.reshape(-1) for x in leaves])
         self.mix_elems(flat)
 

@@ -2,8 +2,10 @@
 
 The port's own copy of the JAX package's loader (`boundless_tpu/native`)
 and of its `executor.cpp` (the exec-only interpreter and the per-segment
-cycle loop) and `witness_gen.cpp` (the witness cycle loop). Each library
-is compiled with g++ at first use into `build/` at the repository root
+cycle loop), `witness_gen.cpp` (the witness cycle loop) and
+`rec_eval.cpp` (the recursion VM's evaluator: the data trace of a
+recursion proof). Each library is compiled with g++ at first use into
+`build/` at the repository root
 (gitignored, the same directory the CUDA kernels build into), keyed by a
 hash of its source, and bound with ctypes. Nothing is built at import.
 """
@@ -52,3 +54,12 @@ def witness_lib():
 
 def executor_lib():
     return load("bt_executor", ["executor.cpp"])
+
+
+def rec_eval_lib():
+    lib = load("bt_rec_eval", ["rec_eval.cpp"])
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.bt_rec_eval.argtypes = [vp] * 6 + [i64, vp, i64, vp, vp, vp, vp,
+                                           ctypes.c_char_p, ctypes.c_int]
+    lib.bt_rec_eval.restype = ctypes.c_int
+    return lib

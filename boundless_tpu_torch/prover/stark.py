@@ -15,10 +15,12 @@ proof of the other:
 PyTorch runs eagerly: there is no jit, no buffer donation and no XLA
 scheduling knob. Every tensor of a proof lives on the device of the input
 trace. The quotient has two routes with bit-identical coefficients (the
-reference's `stark.py:484-534`): on a CUDA card the fused route, one pass
-of the generated constraint kernel over the 4N grid (`kernels/cons.py`)
-and one masked α-combine per divisor class; on the CPU the degree-split
-route, one eager `constraints` pass per N/2N/4N grid.
+reference's `stark.py:484-534`): for an AIR that declares the kernel
+(`fused_cons`, rv32im) on a CUDA card the fused route, one pass of the
+generated constraint kernel over the 4N grid (`kernels/cons.py`) and one
+masked α-combine per divisor class; otherwise (the CPU, and the recursion
+AIR on any device) the degree-split route, one eager `constraints` pass
+per N/2N/4N grid.
 """
 
 from __future__ import annotations
@@ -341,9 +343,12 @@ class _TapAccessor:
                           self._o]
 
 
-def _fused_route(device) -> bool:
-    """The fused constraint-kernel route runs on the card."""
-    return device.type == "cuda"
+def _fused_route(air, device) -> bool:
+    """The fused constraint-kernel route runs on the card, for an AIR that
+    declares the kernel (the reference's `pallas_cons_ok` gate); every
+    other AIR takes the degree-split route on any device."""
+    return (device.type == "cuda" and air.fused_cons
+            and air.ctrl_cols > 0 and air.accum_cols > 0)
 
 
 def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
@@ -460,7 +465,7 @@ def prove(air: Air, data_trace, pub, po2: int,
     alpha = tr.sample_ext()
 
     # --- composition polynomial ---
-    fused = _fused_route(dev)
+    fused = _fused_route(air, dev)
     q_coeffs = _quotient_coeffs(air, po2, (ctrl_evals, data_evals,
                                            accum_evals), globals_, pub,
                                 alpha, fused)
@@ -668,8 +673,10 @@ def verify(air: Air, proof: SegmentProof, pub, po2: int,
 
 
 def control_root_of(air: Air, po2: int, ctrl_trace=None,
-                    ps: ProofSystem = ProofSystem(), device="cpu"):
-    """The circuit's control ID: Merkle root of the ctrl group commitment.
+                    ps: ProofSystem = ProofSystem(), device="cuda"):
+    """The circuit's control ID: Merkle root of the ctrl group commitment,
+    computed on the device of `ctrl_trace` (else on `device`, the card
+    unless the caller asks for the CPU).
 
     For rv32im this is the program's image id; it depends on
     ps.commit_expand (the commitment domain is part of the identity)."""

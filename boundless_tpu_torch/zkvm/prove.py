@@ -93,6 +93,15 @@ def image_id_of(image: MemoryImage, po2: int,
     return _image_ctrl(image, po2, ps, device)[1]
 
 
+def mem_root(words: dict) -> tuple:
+    """Sparse page-tree root (zkvm/paging.py) of a byte-addressed word
+    store: the claims' pre/post memory roots, chained across segments."""
+    from . import paging
+
+    return paging.PageTree.from_words(
+        {a >> 2: v for a, v in words.items()}).root()
+
+
 def _gen_witness(image, seg, rng=None):
     """The C++ witness generator; the Python replay only when the native
     library cannot be built or loaded (guest faults propagate)."""
@@ -123,6 +132,17 @@ def prove_segment(image: MemoryImage, seg: Segment,
     proof = stark.prove(_AIRS[variant], data, pub, seg.po2, ps, ctrl)
     return SegmentReceipt(proof=proof, pub=w.pub, image_id=image_id,
                           po2=seg.po2, variant=variant)
+
+
+def dev_receipt(image: MemoryImage, seg: Segment,
+                ps: stark.ProofSystem = DEFAULT_PS,
+                device="cuda") -> SegmentReceipt:
+    """Dev-mode receipt: the real witness publics and image id (computed
+    on `device`), no proof. Instant and NOT sound: a development fixture."""
+    w = _gen_witness(image, seg)
+    _, image_id = _image_ctrl(image, seg.po2, ps, device)
+    return SegmentReceipt(proof=None, pub=w.pub, image_id=image_id,
+                          po2=seg.po2, variant=air_variant_of(image, seg))
 
 
 def verify_segment(receipt: SegmentReceipt,

@@ -42,9 +42,29 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               (`cons_eval.combine_rows`) must not have run. Then the fused
               constraint kernel against its plain version on the proof's
               own 4N grid, bit for bit, and both timed.
+  7. recursion the sponge at 2^21 x 64 and the NTT at 2^22 x 64 forward
+              (three launches) bit for bit against their plain versions and
+              timed; the port's production ROMs (rv32i lift of po2-17
+              DEFAULT_PS segments, rec_po2-20 q50 join and resolve) equal
+              the JAX package's sha256 digests in
+              tests/data/torch_rec_golden.npz; then the chain: the main
+              path's loop session (two po2-17 segments), prove_segment of
+              both on the
+              card, segment_pre_chains, SuccinctSystem at rec_po2 20
+              (50 queries, rate 1/2, rv32i), lift both, join, finalize and
+              verify_session. Every receipt verifies; a join receipt with
+              one proof word bumped and a claim with post_pc changed are
+              rejected. Launch counts are zeroed just before each proof and
+              read right after: sponge and NTT > 0 in every proof, the
+              constraint kernel > 0 in the segment proofs and 0 in the
+              recursion proofs (RecursionAir takes the degree-split
+              route); every recursion data trace came from the native
+              rec_eval. Prints the host seconds of each stage, the
+              quotient stage's seconds and the peak device memory of each
+              recursion proof.
 The last two lines are the kernel table (each kernel's launches on the
-main path, max abs error, ms, plain ms and bound ms) and the contract line
-{"ok": true, "device": {...}}.
+main path and in the recursion proofs, max abs error, ms, plain ms and
+bound ms) and the contract line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -91,6 +111,13 @@ NTT_GLUE_SHAPES = (("intt", 1 << 17, 392, 1),
                    ("coset_evaluate", 1 << 17, 16, 2),
                    ("coset_interpolate", 1 << 19, 4, 1))
 MAIN_PO2 = 17
+REC_PO2 = 20  # the recursion proofs' rows (the lift is 1,035,939 wire rows)
+# The recursion proofs' system: 50 queries at rate 1/2 (the JAX package's
+# production sizing, docs/ROUND5.md; the segments use DEFAULT_PS).
+REC_PS_ARGS = dict(queries=50, fri_min_degree=256, commit_expand=2)
+REC_SPONGE_SHAPE = (1 << 21, 64)  # the data group on the rec commit domain
+REC_NTT_SHAPE = (1 << 22, 64)  # the data group's 4N evaluate
+REC_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_rec_golden.npz")
 INV_RATE_GRID = 4  # the constraint grid's blowup (the 4N LDE)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # 32-bit integer issue of one sm_90 SM per clock: 64 on the FMA-heavy pipe
@@ -650,6 +677,206 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     return launches, cons
 
 
+class TimeCalls:
+    """Host seconds of every call of `module.name` while active, each
+    closed by a device synchronize."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        self._orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._orig)
+
+
+def phase_recursion_kernels(dev, sm_clocks_per_s):
+    """The sponge and the NTT at the recursion proofs' largest shapes."""
+    from boundless_tpu_torch.core import ntt as NTT
+    from boundless_tpu_torch.core import poseidon2 as P2
+    from boundless_tpu_torch.kernels import ntt as NK
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+    rng = np.random.default_rng(SEED + 2)
+    check = Checker()
+    x = rand_words(rng, REC_SPONGE_SHAPE, dev)
+    check(P2K.hash_rows(x), P2.hash_rows(x), "hash_rows rec leaves")
+    n, c = REC_SPONGE_SHAPE
+    perms = n * -(-c // P2.RATE)
+    ms = cuda_ms(lambda: P2K.hash_rows(x), 5)
+    plain_ms = cuda_ms(lambda: P2.hash_rows(x), 1)
+    bms, by = bound_ms(4 * n * (c + P2.DIGEST_WORDS), perms * P2_MULS,
+                       perms * P2_ADDS + n * c, sm_clocks_per_s)
+    say("kernel", kernel="poseidon2_sponge", path="recursion",
+        shape=f"{n}x{c}", tolerance=0, max_abs_err=check.max_err,
+        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bms:.4f}", bound_by=by)
+    del x
+    x = rand_words(rng, REC_NTT_SHAPE, dev)
+    before = NK.LAUNCHES
+    got = NTT.ntt(x)
+    per_call = NK.LAUNCHES - before
+    if per_call != 3:
+        raise AssertionError(f"the 2^22 NTT made {per_call} launches, not 3")
+    check(got, NTT.stockham(x), "four-step rec 4N evaluate")
+    del got
+    ms = cuda_ms(lambda: NTT.ntt(x), 5)
+    plain_ms = cuda_ms(lambda: NTT.stockham(x), 1)
+    n, c = REC_NTT_SHAPE
+    butterflies = c * (n // 2) * (n.bit_length() - 1)
+    bms, by = bound_ms(2 * 4 * n * c, butterflies, 2 * butterflies,
+                       sm_clocks_per_s)
+    say("kernel", kernel="ntt_sub_transform", path="recursion",
+        shape=f"{n}x{c}", launches_per_transform=per_call, tolerance=0,
+        max_abs_err=check.max_err, kernel_ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+
+
+def rom_sha256(prog) -> str:
+    """sha256 of a program's ROM words (canonical little-endian u32)."""
+    import hashlib
+
+    return hashlib.sha256(prog.ctrl_trace_np().astype("<u4").tobytes()
+                          ).hexdigest()
+
+
+def phase_recursion(dev):
+    """Two po2-17 segment proofs lifted into rec_po2-20 RecursionAir
+    proofs, joined, finalized and verified, all on the card."""
+    from boundless_tpu_torch.core import field as F
+    from boundless_tpu_torch.prover import stark
+    from boundless_tpu_torch.recursion import succinct, vm
+    from boundless_tpu_torch.zkvm import guests, paging, prove
+    from boundless_tpu_torch.zkvm.executor import Executor
+
+    seg_ps = prove.DEFAULT_PS
+    image = guests.loop_guest()
+    iters = ((1 << MAIN_PO2) - 40) // 2  # the main path's session: 2 segments
+    t0 = time.perf_counter()
+    ex = Executor(image, guests.words([iters]), segment_po2=MAIN_PO2)
+    res = ex.run()
+    t_exec = time.perf_counter() - t0
+    if len(res.segments) != 2:
+        raise AssertionError(f"{len(res.segments)} segments, expected 2")
+    seg_receipts = []
+    for seg in res.segments:
+        zero_counts()
+        t0 = time.perf_counter()
+        r = prove.prove_segment(image, seg, seg_ps, device=dev)
+        torch.cuda.synchronize()
+        launches = counts()
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"segment proof skipped a kernel: {launches}")
+        say("recursion", stage="segment_proof", segment=seg.index,
+            cycles=seg.cycles, variant=r.variant,
+            prove_s=f"{time.perf_counter() - t0:.3f}",
+            launches=json.dumps(launches).replace(" ", ""))
+        seg_receipts.append(r)
+    t0 = time.perf_counter()
+    chains = succinct.segment_pre_chains(ex, res)
+    t_chains = time.perf_counter() - t0
+
+    params = succinct.SuccinctParams(
+        seg_po2=MAIN_PO2, seg_ps=seg_ps, rec_po2=REC_PO2,
+        rec_ps=stark.ProofSystem(**REC_PS_ARGS), variants=("rv32i",))
+    system = succinct.SuccinctSystem(params, device=dev)
+    gold = np.load(REC_GOLDEN)
+    for kind, prog in system.progs.items():
+        if rom_sha256(prog) != str(gold[f"prod/{kind}/rom_sha256"]):
+            raise AssertionError(f"{kind} ROM differs from the JAX digest")
+        say("recursion", stage="rom", program=kind,
+            rows=int(gold[f"prod/{kind}/rows"]), rom="equal to JAX sha256",
+            control_id=",".join(str(x) for x in system.control_ids[kind]))
+    say("recursion", stage="setup", exec_s=f"{t_exec:.3f}",
+        segment_pre_chains_s=f"{t_chains:.4f}",
+        program_build_s=f"{system.seconds['program_build']:.3f}",
+        control_ids_s=f"{system.seconds['control_ids']:.3f}",
+        allowed_root=",".join(str(x) for x in system.allowed_root))
+
+    evals_before = vm.NATIVE_EVALS
+    rec_launches = {k: 0 for k in counts()}
+
+    def recursion_proof(what, make):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with TimeCalls(stark, "_quotient_coeffs") as quotient:
+            t0 = time.perf_counter()
+            r = make()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts()
+        if launches["poseidon2_sponge"] <= 0 or \
+                launches["ntt_sub_transform"] <= 0:
+            raise AssertionError(f"{what}: a kernel was not launched: "
+                                 f"{launches}")
+        if launches["cons_eval"] != 0:
+            raise AssertionError(f"{what}: RecursionAir ran the constraint "
+                                 f"kernel")
+        if r.proof.data_root.device != dev:
+            raise AssertionError(f"{what}: the proof did not run on the card")
+        for k, v in launches.items():
+            rec_launches[k] += v
+        sec = system.seconds
+        say("recursion", stage=what, wall_s=f"{wall:.3f}",
+            witness_s=f"{sec['witness']:.3f}",
+            native_eval_s=f"{sec['native_eval']:.3f}",
+            prove_s=f"{sec['prove']:.3f}",
+            quotient_s=f"{sum(quotient.seconds):.3f}",
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches=json.dumps(launches).replace(" ", ""))
+        return r
+
+    lifts = [recursion_proof(f"lift{seg.index}", lambda sr=sr, seg=seg:
+                             system.lift(sr, chains[seg.index], seg.pre_mem,
+                                         seg.index))
+             for sr, seg in zip(seg_receipts, res.segments)]
+    joined = recursion_proof("join", lambda: system.join(*lifts))
+    native = vm.NATIVE_EVALS - evals_before
+    if native != 3:
+        raise AssertionError(f"{native} native rec_eval runs for 3 proofs")
+
+    words = [int(w) for w in ex.journal_words]
+    session = succinct.finalize_session(joined, words, image.entry,
+                                        paging.image_root(image))
+    t0 = time.perf_counter()
+    ok = succinct.verify_session(session, system)
+    t_verify = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("verify_session rejected the session receipt")
+    for r in lifts + [joined]:
+        if not system.verify(r):
+            raise AssertionError(f"verify rejected a {r.kind} receipt")
+    fc = joined.proof.fri_proof.final_coeffs.clone()
+    fc[0, 0] = (fc[0, 0] + 1) % F.P
+    bumped = dataclasses.replace(joined, proof=joined.proof._replace(
+        fri_proof=joined.proof.fri_proof._replace(final_coeffs=fc)))
+    if system.verify(bumped):
+        raise AssertionError("verify accepted a join proof with a bumped word")
+    moved = dataclasses.replace(joined, claim=dataclasses.replace(
+        joined.claim, post_pc=joined.claim.post_pc + 4))
+    if system.verify(moved):
+        raise AssertionError("verify accepted a claim with post_pc changed")
+    say("recursion", stage="session", segments=len(lifts),
+        cycles=res.total_cycles, halted=joined.claim.halted,
+        verify_session_s=f"{t_verify:.3f}", verify_session="accepted",
+        receipts_verified=len(lifts) + 1, bumped_proof="rejected",
+        changed_post_pc="rejected", native_rec_evals=native,
+        launches_recursion=json.dumps(rec_launches).replace(" ", ""))
+    return rec_launches
+
+
 KERNELS = (
     ("poseidon2_sponge", "boundless_tpu_torch/csrc/poseidon2.cu",
      "boundless_tpu/core/poseidon2_pallas.py:358"),
@@ -673,9 +900,12 @@ def main():
     phase_golden(dev, cons_check)
     launches, stats["cons_eval"] = phase_main(dev, cons_check,
                                               sm_clocks_per_s)
+    phase_recursion_kernels(dev, sm_clocks_per_s)
+    rec_launches = phase_recursion(dev)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], **stats[name], "library_ms": None}
+         "launches": launches[name], "launches_recursion": rec_launches[name],
+         **stats[name], "library_ms": None}
         for name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

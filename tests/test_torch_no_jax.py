@@ -5,7 +5,9 @@ A subprocess blocks `import jax` and `import boundless_tpu`
 (`sys.modules[name] = None`), imports every module of
 `boundless_tpu_torch` and `chip_smoke.py`, and runs executor -> witness ->
 prove_segment -> verify_segment for the echo guest at po2 8 on the CPU
-(the native C++ witness included); no `boundless_tpu` module may load. The
+(the native C++ witness included), a dev-mode lift of that receipt, and a
+RecursionAir proof of a small program (the native `rec_eval` trace) with
+its verification; no `boundless_tpu` module may load. The
 sources of the port and of `chip_smoke.py` must not import either package.
 """
 
@@ -32,6 +34,21 @@ receipt = prove.prove_segment(guests.echo(), res.segments[0], prove.TEST_PS,
                               device="cpu")
 assert prove.verify_segment(receipt, prove.TEST_PS)
 assert prove.NATIVE_WITNESSES == 1 and prove.REPLAY_WITNESSES == 0
+from boundless_tpu_torch.prover import stark
+from boundless_tpu_torch.recursion import air as rair, succinct, vm
+lifted = succinct.DevModeSystem().lift(receipt)
+assert lifted.claim.image_id == tuple(int(x) for x in receipt.image_id)
+prog = vm.Prog("square")
+b = prog.input()
+prog.assert_eq(prog.pub(0), prog.mul(b, b))
+prog.finalize(256)
+ctrl = rair.rom_trace(prog, 256, "cpu")
+data = rair.data_trace(prog, [(3, 0, 0, 0)], [9], "cpu")
+assert vm.NATIVE_EVALS == 1
+pub = rair.pub_array([9], "cpu")
+rec = stark.prove(rair.AIR, data, pub, 8, prove.TEST_PS, ctrl)
+root = stark.control_root_of(rair.AIR, 8, ctrl, prove.TEST_PS)
+assert stark.verify(rair.AIR, rec, pub, 8, root, prove.TEST_PS)
 loaded = [m for m in sys.modules if m.startswith(("jax", "boundless_tpu"))
           and not m.startswith("boundless_tpu_torch")]
 assert sorted(loaded) == ["boundless_tpu", "jax"], loaded  # placeholders

@@ -65,7 +65,7 @@ def test_image_id_is_the_golden_control_root():
 def test_fused_route_proof_equals_jax_golden(variant, monkeypatch):
     """The card's quotient route (constraint kernel rows, masked α-combine
     per class), here on the kernel's plain version, reproduces the golden."""
-    monkeypatch.setattr(stark, "_fused_route", lambda device: True)
+    monkeypatch.setattr(stark, "_fused_route", lambda air, device: True)
     data, ctrl, pub, gold = golden(variant)
     proof = stark.prove(prove._AIRS[variant], data, pub, PO2, prove.TEST_PS,
                         ctrl)
