@@ -20,7 +20,8 @@ from .core import field as F
 from .core import fri
 from .core import poseidon2 as P2
 from .prover import stark
-from .recursion import claims, succinct
+from .recursion import claims, coproc_succinct, succinct
+from .zkvm import coproc
 
 _OPENINGS = ("open_ctrl", "open_data", "open_accum", "open_check")
 _FRI_LISTS = ("round_roots", "round_rows", "round_paths")
@@ -104,25 +105,35 @@ def poseidon2_constants() -> tuple:
             mu.astype(np.uint32))
 
 
-_CLAIM_FIELDS = [f.name for f in dataclasses.fields(claims.Claim)]
+def _dataclass_from_numpy(cls, flat: dict):
+    """A frozen claim dataclass from {field: array}: ints stay ints,
+    words become tuples."""
+    return cls(**{f.name: (int(flat[f.name]) if flat[f.name].ndim == 0
+                           else tuple(int(x) for x in flat[f.name]))
+                  for f in dataclasses.fields(cls)})
 
 
 def claim_to_numpy(claim) -> dict:
-    """Claim (either package) -> {field: int64 array} (canonical words)."""
-    return {k: np.asarray(getattr(claim, k), dtype=np.int64)
-            for k in _CLAIM_FIELDS}
+    """Claim or CoprocClaim (either package) -> {field: int64 array}
+    (canonical words)."""
+    return {f.name: np.asarray(getattr(claim, f.name), dtype=np.int64)
+            for f in dataclasses.fields(claim)}
 
 
 def claim_from_numpy(flat: dict) -> claims.Claim:
-    """Inverse of `claim_to_numpy`: ints stay ints, words become tuples."""
-    return claims.Claim(**{
-        k: (int(flat[k]) if flat[k].ndim == 0
-            else tuple(int(x) for x in flat[k])) for k in _CLAIM_FIELDS})
+    """Inverse of `claim_to_numpy` for a main-lattice Claim."""
+    return _dataclass_from_numpy(claims.Claim, flat)
+
+
+def coproc_claim_from_numpy(flat: dict) -> coproc_succinct.CoprocClaim:
+    """Inverse of `claim_to_numpy` for a coproc-lattice CoprocClaim."""
+    return _dataclass_from_numpy(coproc_succinct.CoprocClaim, flat)
 
 
 def rec_receipt_to_numpy(r) -> dict:
-    """RecReceipt (either package) -> {key: array}: kind, po2, pub_vals,
-    `claim.<field>` and `proof.<field path>` (Montgomery words)."""
+    """RecReceipt or CoprocRecReceipt (either package) -> {key: array}:
+    kind, po2, pub_vals, `claim.<field>` and `proof.<field path>`
+    (Montgomery words)."""
     out = {"kind": np.array(r.kind), "po2": np.array(int(r.po2)),
            "pub_vals": np.asarray(r.pub_vals, dtype=np.int64)}
     out.update({f"claim.{k}": v for k, v in claim_to_numpy(r.claim).items()})
@@ -131,15 +142,52 @@ def rec_receipt_to_numpy(r) -> dict:
     return out
 
 
+def _sub(flat: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in flat.items()
+            if k.startswith(prefix)}
+
+
+def _rec_receipt_from_numpy(flat: dict, device, cls, claim_from):
+    proof = _sub(flat, "proof.")
+    return cls(kind=str(flat["kind"]),
+               proof=proof_from_numpy(proof, device) if proof else None,
+               claim=claim_from(_sub(flat, "claim.")),
+               pub_vals=tuple(int(x) for x in flat["pub_vals"]),
+               po2=int(flat["po2"]))
+
+
 def rec_receipt_from_numpy(flat: dict, device="cpu") -> succinct.RecReceipt:
     """Inverse of `rec_receipt_to_numpy`, building the port's RecReceipt
     with its proof on `device`."""
-    sub = lambda pre: {k[len(pre):]: v for k, v in flat.items()  # noqa: E731
-                       if k.startswith(pre)}
-    proof = sub("proof.")
-    return succinct.RecReceipt(
-        kind=str(flat["kind"]),
+    return _rec_receipt_from_numpy(flat, device, succinct.RecReceipt,
+                                   claim_from_numpy)
+
+
+def coproc_rec_receipt_from_numpy(flat: dict, device="cpu"
+                                  ) -> coproc_succinct.CoprocRecReceipt:
+    """Inverse of `rec_receipt_to_numpy` for a coproc-lattice receipt
+    (lift_keccak / union), with its proof on `device`."""
+    return _rec_receipt_from_numpy(flat, device,
+                                   coproc_succinct.CoprocRecReceipt,
+                                   coproc_claim_from_numpy)
+
+
+def keccak_receipt_to_numpy(r) -> dict:
+    """KeccakReceipt (either package) -> {key: array}: po2, count,
+    states_pub (canonical int64) and `proof.<field path>`."""
+    out = {"po2": np.array(int(r.po2)), "count": np.array(int(r.count)),
+           "states_pub": np.asarray(r.states_pub, dtype=np.int64)}
+    out.update({f"proof.{k}": v
+                for k, v in proof_to_numpy(r.proof).items()})
+    return out
+
+
+def keccak_receipt_from_numpy(flat: dict, device="cpu"
+                              ) -> coproc.KeccakReceipt:
+    """Inverse of `keccak_receipt_to_numpy`, building the port's
+    KeccakReceipt with its proof on `device`."""
+    proof = _sub(flat, "proof.")
+    return coproc.KeccakReceipt(
         proof=proof_from_numpy(proof, device) if proof else None,
-        claim=claim_from_numpy(sub("claim.")),
-        pub_vals=tuple(int(x) for x in flat["pub_vals"]),
-        po2=int(flat["po2"]))
+        states_pub=np.asarray(flat["states_pub"], dtype=np.int64),
+        po2=int(flat["po2"]), count=int(flat["count"]))

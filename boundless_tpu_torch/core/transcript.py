@@ -3,17 +3,20 @@
 Counterpart of `boundless_tpu/core/transcript.py`, with the same absorb
 and squeeze schedule, so both packages draw the same challenges. The
 state is a (24,) Montgomery tensor on the prover's device; every
-permutation and every absorbed hash runs through `kernels/poseidon2.py`.
+permutation and every absorbed hash runs through `kernels/poseidon2.py`
+(on the CPU an absorbed hash runs through the numpy twin).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import field as F
 from . import poseidon2 as P2
+from . import poseidon2_np as P2NP
 from ..kernels import poseidon2 as P2K
 
 
@@ -34,8 +37,16 @@ class Transcript:
         self._pool = 0
 
     def mix_elems(self, elems):
-        """Absorb a flat vector of field elements via its sponge hash."""
-        self.mix_digest(P2K.hash_rows(elems.reshape(1, -1))[0])
+        """Absorb a flat vector of field elements via its sponge hash. On
+        the CPU the hash runs through the numpy twin: one long row is
+        thousands of sequential permutations (the DEEP taps of a wide
+        AIR), where numpy's cost per call is a twentieth of torch's."""
+        if elems.device.type == "cpu":
+            digest = F.fp(np.asarray(P2NP.hash_elems_np(
+                F.from_mont(elems.reshape(-1)).numpy())), "cpu")
+        else:
+            digest = P2K.hash_rows(elems.reshape(1, -1))[0]
+        self.mix_digest(digest)
 
     def mix_pub(self, pub):
         """Absorb public values, a dataclass of tensors or one tensor: the

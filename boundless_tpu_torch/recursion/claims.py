@@ -265,6 +265,20 @@ class Claim:
             pre_segments=self.pre_segments,
             post_segments=right.post_segments)
 
+    def discharge_coproc(self, union_claim) -> "Claim":
+        """Discharge the keccak ecall chain against a proven coproc
+        span (host mirror of the resolve_coproc program): the union's
+        span must cover the claim's coproc chain exactly, and its
+        permutation count must match the cpio entry counters."""
+        if tuple(union_claim.pre_chain) != tuple(self.pre_coproc):
+            raise ValueError("coproc span pre-chain mismatch")
+        if tuple(union_claim.post_chain) != tuple(self.post_coproc):
+            raise ValueError("coproc span post-chain mismatch")
+        perms = int(union_claim.post_count) - int(union_claim.pre_count)
+        if 100 * perms != int(self.post_seqs[3]) - int(self.pre_seqs[3]):
+            raise ValueError("coproc perm count mismatch")
+        return dataclasses.replace(self, post_coproc=self.pre_coproc)
+
     def resolve(self, assumption_digest: Sequence[int],
                 prev_chain: Sequence[int]) -> "Claim":
         """Pop the top assumption (cons-list semantics): re-derives the

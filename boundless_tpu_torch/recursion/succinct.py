@@ -1,8 +1,9 @@
 """Succinct recursion programs: lift / join / resolve as in-circuit claims.
 
-Counterpart of `boundless_tpu/recursion/succinct.py`, without the keccak
-coprocessor lattice (`build_resolve_coproc`, `resolve_coproc`, the
-`coproc=` parameter). The programs are built over the port's AIRs and
+Counterpart of `boundless_tpu/recursion/succinct.py`, with the keccak
+coprocessor lattice (`build_resolve_coproc`, `SuccinctSystem(coproc=)`,
+`resolve_coproc`; the coproc programs themselves are in
+`coproc_succinct.py`). The programs are built over the port's AIRs and
 have the reference's ROMs word for word; every recursion proof runs the
 port's STARK prover on the device the system was made for (the card
 unless the caller asks for the CPU), the data trace coming from the C++
@@ -33,6 +34,10 @@ that *verifies proofs in-circuit* and derives a claim v2 digest
     assumption from the conditional's assumptions chain (re-deriving the
     8 digest-word folds from a witnessed 8-back chain value) and checks
     the popped digest equals the assumption child's claim digest.
+  * **resolve_coproc** — verifies a conditional child + one receipt of
+    the keccak coproc lattice (membership under that lattice's allowed
+    root, a constant of the program, which also pins the keccak circuit
+    id) and discharges the claim's keccak ecall chain against its span.
 
 Every recursion proof carries PUB_VALS = 24 public scalars:
 groups 0-1 claim digest, 2-3 allowed-set root, 4-5 zero. All programs pad
@@ -56,6 +61,7 @@ import torch
 from ..air import rv32im
 from ..core import field as F
 from ..prover import stark
+from ..zkvm import coproc as zco
 from ..zkvm import paging
 from ..zkvm.prove import _device
 from . import air as rair
@@ -124,6 +130,11 @@ def _pack4(p: vm.Prog, scalars: Sequence[int]) -> int:
     for c in range(1, len(scalars)):
         acc = p.add(acc, p._mul_basis(scalars[c], c, 1))
     return acc
+
+
+def _const4(p: vm.Prog, vals4: Sequence[int]) -> int:
+    """A wire holding 4 constant words (a root half pinned by a program)."""
+    return p.addc(p.const(0), tuple(int(x) % P for x in vals4))
 
 
 class _WireRv32Pub:
@@ -558,6 +569,53 @@ def build_resolve(rec_po2: int, rec_ps: stark.ProofSystem) -> vm.Prog:
     return p
 
 
+def build_resolve_coproc(rec_po2: int, rec_ps: stark.ProofSystem,
+                         coproc_root, coproc_rec_po2: int,
+                         coproc_rec_ps: stark.ProofSystem,
+                         kec_circuit_id) -> vm.Prog:
+    """Discharge a claim's keccak ecall chain against a proven coproc
+    span — the in-circuit form of the reference's resolve-side union
+    check (`prover/crates/workflow/src/tasks/resolve.rs:85-100`).
+
+    Verifies the conditional child (own lattice) plus one coproc-lattice
+    receipt (lift_keccak/union at the coproc po2/ps, membership under
+    the coproc allowed root — a CONSTANT of this program, which also
+    pins the keccak circuit id), then enforces:
+      union.pre_chain  == claim.pre_coproc
+      union.post_chain == claim.post_coproc
+      100 * (union.post_count - union.pre_count) == cpio entry span
+    and emits the claim with post_coproc reset to pre_coproc (the
+    obligation is proven; finalize requires post == ZERO at genesis).
+
+    Witness order: conditional child (_child_witness), then the coproc
+    child (serialized proof + coproc allowed path + CoprocClaim wires).
+    """
+    from . import coproc_succinct as _cs
+
+    p = vm.Prog(f"resolve_coproc-p{rec_po2}q{rec_ps.queries}"
+                f"e{rec_ps.commit_expand}")
+    _, _, C = _verify_child(p, rec_po2, rec_ps)
+    U = _cs.verify_child_coproc(p, coproc_rec_po2, coproc_rec_ps,
+                                coproc_root)
+
+    cid = [_const4(p, kec_circuit_id[0:4]), _const4(p, kec_circuit_id[4:8])]
+    p.assert_eq(U[0], cid[0])
+    p.assert_eq(U[1], cid[1])
+    pre0, post0 = W_CHAINS[8]
+    p.assert_eq(U[2], C[pre0])
+    p.assert_eq(U[3], C[pre0 + 1])
+    p.assert_eq(U[4], C[post0])
+    p.assert_eq(U[5], C[post0 + 1])
+    perms = p.sub(p.pick(U[6], 1), p.pick(U[6], 0))
+    span = p.sub(p.pick(C[W_POST_SEQS], 3), p.pick(C[W_PRE_SEQS], 3))
+    p.assert_eq(p.mul(perms, p.const(100)), span)
+
+    Rv = list(C)
+    Rv[post0], Rv[post0 + 1] = C[pre0], C[pre0 + 1]
+    _own_pub_pins(p, Rv)
+    return p
+
+
 # ---------------------------------------------------------------------------
 # The system: programs, control IDs, receipts
 # ---------------------------------------------------------------------------
@@ -582,7 +640,7 @@ class RecReceipt:
     """A constant-size recursion receipt: one RecursionAir STARK whose
     public values bind (claim digest, allowed root, 0)."""
 
-    kind: str  # lift/join/resolve
+    kind: str  # lift/lift_i/join/resolve/resolve_coproc
     proof: stark.SegmentProof
     claim: claims.Claim
     pub_vals: tuple  # 24 canonical scalars
@@ -606,16 +664,26 @@ class SuccinctSystem:
     on `device` (the card unless the caller asks for the CPU): the ROMs,
     the control IDs and every proof live there.
 
-    One RecursionAir prover serves lift/join/resolve: only the ROM (the
-    ctrl trace, a prover argument) differs. `seconds` holds the host
-    clock of the set-up stages (`program_build`, `control_ids`) and of the
-    stages of the latest proof (`witness`, `native_eval`, `prove`).
+    One RecursionAir prover serves every program: only the ROM (the ctrl
+    trace, a prover argument) differs. `seconds` holds the host clock of
+    the set-up stages (`program_build`, `control_ids`) and of the stages
+    of the latest proof (`witness`, `native_eval`, `prove`).
+
+    `coproc`: optional `coproc_succinct.CoprocParams` — when given, the
+    keccak coproc lattice is built (`coproc_sys`, on the same device) and
+    a fifth program (resolve_coproc) joins the allowed set, discharging
+    claim coproc chains against proven union spans IN-CIRCUIT.
     """
 
-    def __init__(self, params: SuccinctParams, device="cuda"):
+    def __init__(self, params: SuccinctParams, coproc=None, device="cuda"):
         self.params = params
         self.device = _device(device)
         self.seconds: Dict[str, float] = {}
+        self.coproc_sys = None
+        if coproc is not None:
+            from .coproc_succinct import get_system as cs_get
+
+            self.coproc_sys = cs_get(coproc, self.device)
         n = 1 << params.rec_po2
         t0 = time.perf_counter()
         self.progs: Dict[str, vm.Prog] = {}
@@ -629,6 +697,12 @@ class SuccinctSystem:
         self.progs["resolve"] = build_resolve(params.rec_po2,
                                               params.rec_ps)
         self.kinds = [k for k in PROGRAM_KINDS if k in self.progs]
+        if coproc is not None:
+            self.progs["resolve_coproc"] = build_resolve_coproc(
+                params.rec_po2, params.rec_ps, self.coproc_sys.allowed_root,
+                coproc.rec_po2, coproc.rec_ps,
+                zco.circuit_id(coproc.kec_po2, coproc.kec_ps, self.device))
+            self.kinds.append("resolve_coproc")
         for name, prog in self.progs.items():
             if len(prog.rows) >= n:
                 raise SuccinctError(
@@ -736,6 +810,25 @@ class SuccinctSystem:
         self.seconds["witness"] = witness_s
         return r
 
+    def resolve_coproc(self, conditional: RecReceipt,
+                       union_receipt) -> RecReceipt:
+        """Discharge the claim's keccak ecall chain against a proven
+        coproc-lattice span (reference resolve.rs union handling).
+        `union_receipt` is a `coproc_succinct.CoprocRecReceipt` (a
+        lift_keccak or union receipt)."""
+        if self.coproc_sys is None:
+            raise SuccinctError("system built without coproc params")
+        t0 = time.perf_counter()
+        claim = conditional.claim.discharge_coproc(union_receipt.claim)
+        wit = _child_witness(conditional,
+                             self._kind_index(conditional.kind),
+                             self.allowed_ids, self.params.rec_ps)
+        wit += self.coproc_sys.child_witness(union_receipt)
+        witness_s = time.perf_counter() - t0
+        r = self._prove("resolve_coproc", wit, claim)
+        self.seconds["witness"] = witness_s
+        return r
+
     # -- verification ---------------------------------------------------
 
     def verify(self, r: RecReceipt) -> bool:
@@ -755,8 +848,9 @@ class SuccinctSystem:
 
 
 @functools.lru_cache(maxsize=4)
-def get_system(params: SuccinctParams, device="cuda") -> SuccinctSystem:
-    return SuccinctSystem(params, device)
+def get_system(params: SuccinctParams, coproc=None,
+               device="cuda") -> SuccinctSystem:
+    return SuccinctSystem(params, coproc, device)
 
 
 class DevModeSystem:
@@ -802,6 +896,12 @@ class DevModeSystem:
             raise SuccinctError("assumption receipt itself unresolved")
         return self._receipt("resolve", conditional.claim.resolve(
             assumption.claim.digest(), prev_chain))
+
+    def resolve_coproc(self, conditional: RecReceipt,
+                       union_receipt) -> RecReceipt:
+        return self._receipt("resolve_coproc",
+                             conditional.claim.discharge_coproc(
+                                 union_receipt.claim))
 
     def verify(self, r: RecReceipt) -> bool:
         return (r.proof is None

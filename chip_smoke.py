@@ -62,9 +62,30 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               rec_eval. Prints the host seconds of each stage, the
               quotient stage's seconds and the peak device memory of each
               recursion proof.
+  8. coproc   the sponge at 2^11 x 4048 and the NTT at 2^11 x 4048 (with
+              the LDE glue at the KeccakAir trace's 2^10 x 4048) bit for bit
+              against their plain versions and timed; the keccak guest's
+              po2-17 rv32im segment proof (DEFAULT_PS) with the fused
+              constraint kernel checked on its 4N grid; the production ROMs
+              of both lattices at rec_po2 21 (rv32im lift, join, resolve,
+              lift_keccak at kec_po2 10 q50, union, and resolve_coproc built
+              with the golden's placeholder constants) equal the JAX sha256
+              digests of tests/data/torch_keccak_golden.npz, and the keccak
+              circuit id equals JAX's; then the guest's batch as a KeccakAir
+              proof -> lift_keccak, the segment -> lift, resolve_coproc ->
+              finalize_session -> verify_session; then two chained random
+              batches (42 + 17 permutations) -> lift_keccak each -> union
+              over 0 -> 59. Tampers rejected: a bumped public state limb, a
+              lift_keccak proof with one word bumped, a resolve_coproc claim
+              with post_coproc changed; finalize_session on the undischarged
+              lift raises, and so does a union in the wrong order. Launch
+              counts are zeroed before each proof and read after: sponge and
+              NTT > 0 in every proof, the constraint kernel > 0 only in the
+              segment proof; every recursion data trace came from rec_eval.
 The last two lines are the kernel table (each kernel's launches on the
-main path and in the recursion proofs, max abs error, ms, plain ms and
-bound ms) and the contract line {"ok": true, "device": {...}}.
+main path, in the recursion proofs and in the coproc phase, max abs
+error, ms, plain ms and bound ms) and the contract line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -118,6 +139,17 @@ REC_PS_ARGS = dict(queries=50, fri_min_degree=256, commit_expand=2)
 REC_SPONGE_SHAPE = (1 << 21, 64)  # the data group on the rec commit domain
 REC_NTT_SHAPE = (1 << 22, 64)  # the data group's 4N evaluate
 REC_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_rec_golden.npz")
+# The keccak coprocessor phase: KeccakAir batches at kec_po2 10 (42
+# permutations, 4048 data columns) under the recursion's q50 system, and
+# both lattices at rec_po2 21 (the rv32im lift of a po2-17 DEFAULT_PS
+# segment is 1,175,747 wire rows, lift_keccak 1,779,976).
+KEC_PO2 = 10
+COPROC_REC_PO2 = 21
+KEC_TRACE_SHAPE = (1 << 10, 4048)  # the data trace (interpolation, LDE)
+KEC_SPONGE_SHAPE = (1 << 11, 4048)  # the data leaves on the commit domain
+KEC_NTT_SHAPE = (1 << 11, 4048)
+UNION_PERMS = (42, 17)  # two chained batches, united
+KEC_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_keccak_golden.npz")
 INV_RATE_GRID = 4  # the constraint grid's blowup (the 4N LDE)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # 32-bit integer issue of one sm_90 SM per clock: 64 on the FMA-heavy pipe
@@ -877,6 +909,253 @@ def phase_recursion(dev):
     return rec_launches
 
 
+def phase_coproc_kernels(dev, sm_clocks_per_s):
+    """The sponge and the NTT at the KeccakAir proof's shapes (4048 data
+    columns: 126 whole 32-column NTT strips and a 16-column tail; 253
+    rate blocks a leaf)."""
+    from boundless_tpu_torch.core import ntt as NTT
+    from boundless_tpu_torch.core import poseidon2 as P2
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+    rng = np.random.default_rng(SEED + 3)
+    check = Checker()
+    x = rand_words(rng, KEC_SPONGE_SHAPE, dev)
+    check(P2K.hash_rows(x), P2.hash_rows(x), "hash_rows keccak leaves")
+    n, c = KEC_SPONGE_SHAPE
+    perms = n * -(-c // P2.RATE)
+    ms = cuda_ms(lambda: P2K.hash_rows(x), 5)
+    plain_ms = cuda_ms(lambda: P2.hash_rows(x), 1)
+    bms, by = bound_ms(4 * n * (c + P2.DIGEST_WORDS), perms * P2_MULS,
+                       perms * P2_ADDS + n * c, sm_clocks_per_s)
+    say("coproc", kernel="poseidon2_sponge", shape=f"{n}x{c}", tolerance=0,
+        max_abs_err=check.max_err, kernel_ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+    glue = (("intt", NTT.intt, NTT.intt_plain, ()),
+            ("coset_evaluate", NTT.coset_evaluate, NTT.coset_evaluate_plain,
+             (INV_RATE_GRID,)))
+    for name, fused, plain, args in glue:
+        x = rand_words(rng, KEC_TRACE_SHAPE, dev)
+        check(fused(x, *args), plain(x, *args),
+              f"{name} keccak {KEC_TRACE_SHAPE}")
+    x = rand_words(rng, KEC_NTT_SHAPE, dev)
+    check(NTT.ntt(x), NTT.stockham(x), "ntt keccak forward")
+    ms = cuda_ms(lambda: NTT.ntt(x), 5)
+    plain_ms = cuda_ms(lambda: NTT.stockham(x), 1)
+    n, c = KEC_NTT_SHAPE
+    butterflies = c * (n // 2) * (n.bit_length() - 1)
+    bms, by = bound_ms(2 * 4 * n * c, butterflies, 2 * butterflies,
+                       sm_clocks_per_s)
+    say("coproc", kernel="ntt_sub_transform", shape=f"{n}x{c}",
+        glue_checked=",".join(g[0] for g in glue), tolerance=0,
+        max_abs_err=check.max_err, checked=check.checked,
+        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bms:.4f}", bound_by=by)
+
+
+def phase_coproc(dev, cons_check):
+    """The keccak coprocessor on the card: a keccak guest's po2-17 rv32im
+    segment and its KeccakAir batch lifted into rec_po2-21 proofs, the
+    coproc chain discharged by resolve_coproc, the session finalized and
+    verified; then two chained random batches (42 + 17 permutations)
+    lifted and united."""
+    from boundless_tpu_torch.core import field as F
+    from boundless_tpu_torch.prover import stark
+    from boundless_tpu_torch.recursion import coproc_succinct as cs
+    from boundless_tpu_torch.recursion import succinct, vm
+    from boundless_tpu_torch.zkvm import coproc, guests, paging, prove
+    from boundless_tpu_torch.zkvm.executor import Executor
+
+    gold = np.load(KEC_GOLDEN)
+    q50 = stark.ProofSystem(**REC_PS_ARGS)
+    cparams = cs.CoprocParams(kec_po2=KEC_PO2, kec_ps=q50,
+                              rec_po2=COPROC_REC_PO2, rec_ps=q50)
+    params = succinct.SuccinctParams(
+        seg_po2=MAIN_PO2, seg_ps=prove.DEFAULT_PS, rec_po2=COPROC_REC_PO2,
+        rec_ps=q50, variants=("rv32im",))
+    coproc_launches = {k: 0 for k in counts()}
+
+    def counted(what, make, stages=None, cons_kernel: bool = False):
+        """Run one proof with the launch counts zeroed just before and read
+        right after: sponge and NTT launched, the constraint kernel
+        launched iff `cons_kernel` (the rv32im segment proof). `stages`:
+        the recursion system whose `seconds` time the proof's stages."""
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with TimeCalls(stark, "_quotient_coeffs") as quotient:
+            t0 = time.perf_counter()
+            r = make()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts()
+        for k, v in launches.items():
+            coproc_launches[k] += v
+        if launches["poseidon2_sponge"] <= 0 or \
+                launches["ntt_sub_transform"] <= 0:
+            raise AssertionError(f"{what}: a kernel was not launched: "
+                                 f"{launches}")
+        if (launches["cons_eval"] > 0) != cons_kernel:
+            raise AssertionError(f"{what}: {launches['cons_eval']} "
+                                 f"constraint-kernel launches")
+        if r.proof.data_root.device != dev:
+            raise AssertionError(f"{what}: the proof did not run on the card")
+        sec = {} if stages is None else {
+            f"{k}_s": f"{stages.seconds[k]:.3f}"
+            for k in ("witness", "native_eval", "prove")}
+        say("coproc", stage=what, wall_s=f"{wall:.3f}", **sec,
+            quotient_s=f"{sum(quotient.seconds):.3f}",
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches=json.dumps(launches).replace(" ", ""))
+        return r
+
+    # the keccak guest's session: one po2-17 segment, one permutation
+    image = guests.keccak_guest()
+    t0 = time.perf_counter()
+    ex = Executor(image, guests.words([]), segment_po2=MAIN_PO2)
+    res = ex.run()
+    t_exec = time.perf_counter() - t0
+    if len(res.segments) != 1 or not ex.keccak_states:
+        raise AssertionError(f"keccak guest: {len(res.segments)} segments, "
+                             f"{len(ex.keccak_states)} permutations")
+    seg = res.segments[0]
+    with CaptureCons() as cap:
+        seg_receipt = counted("segment_proof", lambda: prove.prove_segment(
+            image, seg, prove.DEFAULT_PS, device=dev), cons_kernel=True)
+    if seg_receipt.variant != "rv32im":
+        raise AssertionError(f"the keccak segment proved {seg_receipt.variant}")
+    if not prove.verify_segment(seg_receipt, prove.DEFAULT_PS):
+        raise AssertionError("verify_segment rejected the keccak segment")
+    check_cons(cap.calls, cons_check, f"coproc rv32im po2 {MAIN_PO2}")
+    say("coproc", stage="segment", guest="keccak", cycles=seg.cycles,
+        permutations=len(ex.keccak_states), exec_s=f"{t_exec:.3f}",
+        verify_segment="accepted", constraint_grids_checked=len(cap.calls),
+        tolerance=0, max_abs_err=cons_check.max_err)
+
+    # programs, ROMs and control IDs of both lattices
+    placeholder = (tuple(int(x) for x in gold["placeholder/coproc_root"]),
+                   tuple(int(x) for x in gold["placeholder/kec_circuit_id"]))
+    t0 = time.perf_counter()
+    system = succinct.SuccinctSystem(params, coproc=cparams, device=dev)
+    t_systems = time.perf_counter() - t0
+    csys = system.coproc_sys
+    # resolve_coproc embeds the coproc allowed root and the keccak circuit
+    # id; its ROM is held to JAX's through a build with the golden's
+    # placeholder constants in their place
+    t0 = time.perf_counter()
+    progs = dict(system.progs, **csys.progs)
+    progs["resolve_coproc"] = succinct.build_resolve_coproc(
+        COPROC_REC_PO2, q50, placeholder[0], COPROC_REC_PO2, q50,
+        placeholder[1]).finalize(1 << COPROC_REC_PO2)
+    t_placeholder = time.perf_counter() - t0
+    cid = coproc.circuit_id(KEC_PO2, q50, dev)
+    if cid != tuple(int(x) for x in gold["prod/circuit_id"]):
+        raise AssertionError("the keccak circuit id differs from JAX's")
+    ids = dict(system.control_ids, **csys.control_ids)
+    for kind, prog in progs.items():
+        if rom_sha256(prog) != str(gold[f"prod/{kind}/rom_sha256"]):
+            raise AssertionError(f"{kind} ROM differs from the JAX digest")
+        say("coproc", stage="rom", program=kind,
+            rows=int(gold[f"prod/{kind}/rows"]), rom="equal to JAX sha256",
+            built_with=("placeholder constants" if kind == "resolve_coproc"
+                        else "the real constants"),
+            control_id=",".join(str(x) for x in ids[kind]))
+    say("coproc", stage="setup",
+        coproc_program_build_s=f"{csys.seconds['program_build']:.3f}",
+        coproc_control_ids_s=f"{csys.seconds['control_ids']:.3f}",
+        main_program_build_s=f"{system.seconds['program_build']:.3f}",
+        main_control_ids_s=f"{system.seconds['control_ids']:.3f}",
+        systems_wall_s=f"{t_systems:.3f}",
+        placeholder_build_s=f"{t_placeholder:.3f}",
+        circuit_id="equal to JAX",
+        coproc_allowed_root=",".join(str(x) for x in csys.allowed_root),
+        allowed_root=",".join(str(x) for x in system.allowed_root))
+    evals_before = vm.NATIVE_EVALS
+
+    # the guest chain: batch -> lift_keccak; segment -> lift; resolve_coproc
+    kec = counted("keccak_proof guest", lambda: coproc.prove_keccak(
+        ex.keccak_states, KEC_PO2, q50, device=dev))
+    if not coproc.verify_keccak(kec, q50):
+        raise AssertionError("verify_keccak rejected the guest's batch")
+    bumped_pub = kec.states_pub.copy()
+    bumped_pub[0, 1] = (int(bumped_pub[0, 1]) + 1) % F.P
+    if coproc.verify_keccak(dataclasses.replace(kec, states_pub=bumped_pub),
+                            q50):
+        raise AssertionError("verify_keccak accepted a bumped state limb")
+    if kec.digests() != list(ex.keccak_claims):
+        raise AssertionError("batch digests differ from the ecall claims")
+    klift = counted("lift_keccak guest", lambda: csys.lift(kec), csys)
+    chains = succinct.segment_pre_chains(ex, res)
+    lift = counted("lift", lambda: system.lift(
+        seg_receipt, chains[seg.index], seg.pre_mem, seg.index), system)
+    words = [int(w) for w in ex.journal_words]
+    mem_root = paging.image_root(image)
+    try:
+        succinct.finalize_session(lift, words, image.entry, mem_root)
+        raise AssertionError("finalize_session accepted an undischarged lift")
+    except succinct.SuccinctError:
+        pass
+    resolved = counted("resolve_coproc", lambda: system.resolve_coproc(
+        lift, klift), system)
+    session = succinct.finalize_session(resolved, words, image.entry,
+                                        mem_root)
+    t0 = time.perf_counter()
+    if not succinct.verify_session(session, system):
+        raise AssertionError("verify_session rejected the keccak session")
+    t_verify = time.perf_counter() - t0
+    for r in (lift, resolved):
+        if not system.verify(r):
+            raise AssertionError(f"verify rejected a {r.kind} receipt")
+    if not csys.verify(klift):
+        raise AssertionError("verify rejected the lift_keccak receipt")
+    fc = klift.proof.fri_proof.final_coeffs.clone()
+    fc[0, 0] = (fc[0, 0] + 1) % F.P
+    if csys.verify(dataclasses.replace(klift, proof=klift.proof._replace(
+            fri_proof=klift.proof.fri_proof._replace(final_coeffs=fc)))):
+        raise AssertionError("verify accepted a lift_keccak proof with a "
+                             "bumped word")
+    moved = dataclasses.replace(resolved, claim=dataclasses.replace(
+        resolved.claim, post_coproc=lift.claim.post_coproc))
+    if system.verify(moved):
+        raise AssertionError("verify accepted a resolve_coproc claim with "
+                             "post_coproc changed")
+    say("coproc", stage="session", guest="keccak",
+        post_coproc="discharged", verify_session="accepted",
+        verify_session_s=f"{t_verify:.3f}", bumped_state_limb="rejected",
+        bumped_lift_keccak_word="rejected",
+        changed_post_coproc="rejected", undischarged_finalize="raised")
+
+    # the union of two chained random batches
+    rng = np.random.default_rng(SEED + 4)
+    batches = [[[int(v) for v in rng.integers(0, 1 << 64, size=25,
+                                               dtype=np.uint64)]
+                for _ in range(k)] for k in UNION_PERMS]
+    lifts, chain, count = [], (0,) * 8, 0
+    for i, states in enumerate(batches):
+        r = counted(f"keccak_proof batch{i}", lambda s=states:
+                    coproc.prove_keccak(s, KEC_PO2, q50, device=dev))
+        lifts.append(counted(f"lift_keccak batch{i}",
+                             lambda r=r, c=chain, n=count: csys.lift(r, c, n),
+                             csys))
+        chain, count = lifts[-1].claim.post_chain, count + len(states)
+    united = counted("union", lambda: csys.union(*lifts), csys)
+    span = (united.claim.pre_count, united.claim.post_count)
+    if not csys.verify(united) or span != (0, sum(UNION_PERMS)):
+        raise AssertionError(f"the union did not verify over 0 -> "
+                             f"{sum(UNION_PERMS)}: {span}")
+    try:
+        csys.union(lifts[1], lifts[0])
+        raise AssertionError("union accepted its children in the wrong order")
+    except ValueError:
+        pass
+    native = vm.NATIVE_EVALS - evals_before
+    if native != 6:
+        raise AssertionError(f"{native} native rec_eval runs for 6 proofs")
+    say("coproc", stage="union", permutations="+".join(map(str, UNION_PERMS)),
+        span=f"{span[0]}->{span[1]}", verify="accepted",
+        wrong_order="raised", native_rec_evals=native,
+        launches_coproc=json.dumps(coproc_launches).replace(" ", ""))
+    return coproc_launches
+
+
 KERNELS = (
     ("poseidon2_sponge", "boundless_tpu_torch/csrc/poseidon2.cu",
      "boundless_tpu/core/poseidon2_pallas.py:358"),
@@ -902,9 +1181,12 @@ def main():
                                               sm_clocks_per_s)
     phase_recursion_kernels(dev, sm_clocks_per_s)
     rec_launches = phase_recursion(dev)
+    phase_coproc_kernels(dev, sm_clocks_per_s)
+    coproc_launches = phase_coproc(dev, cons_check)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "launches_recursion": rec_launches[name],
+         "launches_coproc": coproc_launches[name],
          **stats[name], "library_ms": None}
         for name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ A subprocess blocks `import jax` and `import boundless_tpu`
 (`sys.modules[name] = None`), imports every module of
 `boundless_tpu_torch` and `chip_smoke.py`, and runs executor -> witness ->
 prove_segment -> verify_segment for the echo guest at po2 8 on the CPU
-(the native C++ witness included), a dev-mode lift of that receipt, and a
+(the native C++ witness included), a dev-mode lift of that receipt, a
+dev-mode keccak batch lifted into the coproc lattice, and a
 RecursionAir proof of a small program (the native `rec_eval` trace) with
 its verification; no `boundless_tpu` module may load. The
 sources of the port and of `chip_smoke.py` must not import either package.
@@ -38,6 +39,11 @@ from boundless_tpu_torch.prover import stark
 from boundless_tpu_torch.recursion import air as rair, succinct, vm
 lifted = succinct.DevModeSystem().lift(receipt)
 assert lifted.claim.image_id == tuple(int(x) for x in receipt.image_id)
+from boundless_tpu_torch.recursion import coproc_succinct
+from boundless_tpu_torch.zkvm import coproc
+batch = coproc.prove_keccak([[3] * 25], po2=8, dev_mode=True)
+span = coproc_succinct.DevModeCoprocSystem().lift(batch)
+assert span.claim.post_count == 1 and len(batch.digests()) == 1
 prog = vm.Prog("square")
 b = prog.input()
 prog.assert_eq(prog.pub(0), prog.mul(b, b))
