@@ -3,7 +3,9 @@
 Counterpart of `boundless_tpu/core/merkle.py`: leaf i is the sponge hash
 of row i of an (N, C) matrix, then a binary tree of 2-to-1 compressions.
 Every hash goes through `kernels/poseidon2.py` (the CUDA sponge on a GPU
-tensor), at every size: no small-level fallback as on the TPU.
+tensor), at every size: no small-level fallback as on the TPU. On the card
+the levels above one of at most `TREE_TOP` nodes are one launch
+(`hash_tree`); on the CPU every level runs the plain loop.
 """
 
 from __future__ import annotations
@@ -33,10 +35,12 @@ def commit(matrix) -> MerkleTree:
     matrix = matrix.contiguous()
     cur = P2K.hash_rows(matrix)
     levels = [cur]
-    while cur.shape[0] > 1:
+    while cur.shape[0] > P2K.TREE_TOP:
         # rows 2i and 2i+1 are adjacent: the (n/2, 16) view is [left|right]
         cur = P2K.hash_rows(cur.view(-1, 16))
         levels.append(cur)
+    if cur.shape[0] > 1:
+        levels.extend(P2K.hash_tree(cur))  # the rest: one launch on the card
     return MerkleTree(levels=tuple(levels), matrix=matrix)
 
 

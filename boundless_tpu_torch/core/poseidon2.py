@@ -156,3 +156,15 @@ def hash_rows(matrix, init=None, out_words: int = DIGEST_WORDS):
 def hash_pair(left, right):
     """2-to-1 compression of (M, 8) digests -> (M, 8)."""
     return hash_rows(torch.cat([left, right], dim=1))
+
+
+def hash_tree(level):
+    """The levels above an (M, 8) digest level, M a power of two: [(M/2, 8),
+    ..., (1, 8)], node i of a level hashing nodes 2i and 2i + 1 below (the
+    level loop of `merkle.commit`). Plain version of the CUDA tree top."""
+    levels, cur = [], level
+    while cur.shape[0] > 1:
+        cur = hash_rows(cur.reshape(-1, 2 * DIGEST_WORDS))
+        levels.append(cur)
+    return levels
+

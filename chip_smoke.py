@@ -11,23 +11,38 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               nvcc per library, all started together: the Poseidon2 sponge
               (csrc/poseidon2.cu), the NTT sub-transform (csrc/ntt.cu) and
               the generated fused constraint kernels of both AIR variants
-              (kernels/cons.py), plus the issue-rate probe; prints nvcc
+              (kernels/cons.py), plus the probes and the spin kernel of
+              device_ms; prints nvcc
               seconds, registers, spills and blocks per SM.
   3. probe    independent chains of bb::mul and of bb::add on every SM:
               achieved operations and 32-bit instructions per second beside
-              the published issue rate the bounds use.
+              the published issue rate the bounds use; one warp's dependent
+              chains of bb::mul, bb::add, a shuffle and a shuffle-and-add:
+              clocks each, and the critical path of one
+              permutation in every layout (p2_critical_path), which gives
+              the sponge's latency bound.
   4. kernel   each kernel against its plain torch version on the card, bit
-              for bit (tolerance 0: field words). Sponge: N in {1, 1000,
-              1024, 2^18} x C in {0, 7, 16, 384}, the main path's sponge
-              shapes, pairs at 2^17 and transcript permutations. NTT: the
-              sub-transform at M in {2, 64, 512, 1024} x L in {1, 7, 128,
-              392}, both directions, with the four-step store; the whole
-              four-step at the main path's
-              transforms; the LDE glue the kernel folds in (coset_evaluate's
+              for bit (tolerance 0: field words). Sponge: every layout (1,
+              2, 4 and 8 lanes a hash) at N in SPONGE_CHECK_N and at each
+              crossover of kernels/poseidon2.LANE_CROSSOVER +- 1, x C in
+              SPONGE_CHECK_C ("init": a permutation of a state), the main
+              path's sponge shapes, pairs at 2^17, the tree top at every
+              level size up to tree_max(), and every level of merkle.commit
+              at 2^18 x 392 against the plain level loop. Times (device
+              time, the host's cost hidden behind a spin kernel where
+              launches are short) every layout at SPONGE_TIME_SHAPES beside
+              the plain version, the throughput bound and the latency
+              bound; a sweep of N for the crossovers, the tree top against
+              the level loop at every size (device and host ms), and a
+              whole commit with its leaves, levels and tree top apart.
+              NTT: the sub-transform at M in {2, 64, 512, 1024} x L in {1,
+              7, 128, 392}, both directions, with the four-step store; the
+              whole four-step at the main path's transforms; the LDE glue
+              the kernel folds in (coset_evaluate's
               zero-skip shifted load, intt's and coset_interpolate's scaled
-              stores) at the main path's shapes. Times the sponge at the
-              leaf shape, the NTT at 2^19 x 392 (and each of its two
-              launches) and the data LDE with CUDA events.
+              stores) at the main path's shapes. Times the NTT at 2^19 x
+              392 (and each of its two launches) and the data LDE with CUDA
+              events.
   5. golden   the port's po2-8 TEST_PS proofs on the card equal the JAX
               reference proofs stored in tests/data/torch_golden_po2_8.npz;
               every kernel launched in them; the fused constraint kernel's
@@ -41,13 +56,21 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               sponge launches are counted apart), and the eager α-combine
               (`cons_eval.combine_rows`) must not have run. Then the fused
               constraint kernel against its plain version on the proof's
-              own 4N grid, bit for bit, and both timed.
-  7. recursion the sponge at 2^21 x 64 and the NTT at 2^22 x 64 forward
-              (three launches) bit for bit against their plain versions and
+              own 4N grid, bit for bit, and both timed. The sponge's
+              launches by layout: lanes 1, 2 and 8 and the tree top must
+              each be > 0. Then a second, warm proof and verify of the
+              segment, apart from the timed ones, give the sponge's device
+              time by kind (leaves, tree levels, tree top, transcript,
+              verifier; SpongeProfile).
+  7. recursion the sponge at 2^21 x 64 in every layout, every level of its
+              merkle.commit, and the NTT at 2^22 x 64 forward (three
+              launches) bit for bit against their plain versions and
               timed; the port's production ROMs (rv32i lift of po2-17
               DEFAULT_PS segments, rec_po2-20 q50 join and resolve) equal
               the JAX package's sha256 digests in
-              tests/data/torch_rec_golden.npz; then the chain: the main
+              tests/data/torch_rec_golden.npz and their control IDs equal
+              JAX's in tests/data/torch_control_golden.npz; then the
+              chain: the main
               path's loop session (two po2-17 segments), prove_segment of
               both on the
               card, segment_pre_chains, SuccinctSystem at rec_po2 20
@@ -58,10 +81,12 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               read right after: sponge and NTT > 0 in every proof, the
               constraint kernel > 0 in the segment proofs and 0 in the
               recursion proofs (RecursionAir takes the degree-split
-              route); every recursion data trace came from the native
+              route), the sponge's 8-lane layout and tree top > 0 in every
+              proof; every recursion data trace came from the native
               rec_eval. Prints the host seconds of each stage, the
-              quotient stage's seconds and the peak device memory of each
-              recursion proof.
+              quotient stage's seconds, the peak device memory and the
+              sponge's launches by layout of each recursion proof, and its
+              device time by kind in one more, profiled lift.
   8. coproc   the sponge at 2^11 x 4048 and the NTT at 2^11 x 4048 (with
               the LDE glue at the KeccakAir trace's 2^10 x 4048) bit for bit
               against their plain versions and timed; the keccak guest's
@@ -70,8 +95,10 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               of both lattices at rec_po2 21 (rv32im lift, join, resolve,
               lift_keccak at kec_po2 10 q50, union, and resolve_coproc built
               with the golden's placeholder constants) equal the JAX sha256
-              digests of tests/data/torch_keccak_golden.npz, and the keccak
-              circuit id equals JAX's; then the guest's batch as a KeccakAir
+              digests of tests/data/torch_keccak_golden.npz and their
+              control IDs JAX's in tests/data/torch_control_golden.npz,
+              and the keccak circuit id equals JAX's; then the guest's
+              batch as a KeccakAir
               proof -> lift_keccak, the segment -> lift, resolve_coproc ->
               finalize_session -> verify_session; then two chained random
               batches (42 + 17 permutations) -> lift_keccak each -> union
@@ -81,7 +108,10 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               lift raises, and so does a union in the wrong order. Launch
               counts are zeroed before each proof and read after: sponge and
               NTT > 0 in every proof, the constraint kernel > 0 only in the
-              segment proof; every recursion data trace came from rec_eval.
+              segment proof, the sponge's 8-lane layout and tree top > 0;
+              every recursion data trace came from rec_eval. The sponge's
+              device time by kind in one more, profiled KeccakAir proof
+              and lift_keccak.
 The last two lines are the kernel table (each kernel's launches on the
 main path, in the recursion proofs and in the coproc phase, max abs
 error, ms, plain ms and bound ms) and the contract line
@@ -104,9 +134,22 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20260
-KERNEL_SHAPES_N = (1, 1000, 1024, 1 << 18)
-KERNEL_SHAPES_C = (0, 7, 16, 384)
+# The sponge against its plain version (tolerance 0) in every layout: rows
+# (plus each crossover of kernels/poseidon2.LANE_CROSSOVER and its two
+# neighbours) by columns ("init": one permutation of an initial state).
+SPONGE_CHECK_N = (1, 2, 3, 31, 1000, 1 << 18)
+SPONGE_CHECK_C = ("init", 7, 16, 17, 392, 3904, 4048)
 LEAF_SHAPE = (1 << 18, 392)  # rv32i data group on the po2-17 commit domain
+# The DEEP-tap absorb of a KeccakAir proof: 4 words a tap, two taps of each
+# of its 32 + 4048 + 24 trace columns and one of the 16 check columns.
+KEC_DEEP_WORDS = 4 * (2 * (32 + 4048 + 24) + 16)
+# Timed sponge launches (what, rows, columns; 0 columns: a permutation).
+SPONGE_TIME_SHAPES = (("transcript permute", 1, 0),
+                      ("main DEEP absorb", 1, 3904),
+                      ("KeccakAir DEEP absorb", 1, KEC_DEEP_WORDS),
+                      ("KeccakAir leaves", 1 << 11, 4048),
+                      ("main leaves", *LEAF_SHAPE))
+SPONGE_SWEEP = tuple((1 << k, c) for c in (16, 392) for k in range(10, 18))
 # Sponge inputs of the po2-17 rv32i main path: ctrl / data / accum / check
 # leaves on the 2^18-row commit domain, a FRI group matrix, the DEEP-tap
 # transcript absorb, and opened rows at 100 queries.
@@ -139,6 +182,12 @@ REC_PS_ARGS = dict(queries=50, fri_min_degree=256, commit_expand=2)
 REC_SPONGE_SHAPE = (1 << 21, 64)  # the data group on the rec commit domain
 REC_NTT_SHAPE = (1 << 22, 64)  # the data group's 4N evaluate
 REC_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_rec_golden.npz")
+# The JAX control IDs of the production programs (rec20/<kind>: the rv32i
+# lattice at rec_po2 20; rec21/<kind>: the rv32im and coproc lattices at
+# 21, resolve_coproc with the placeholder constants), from
+# tests/data/make_torch_control_golden.py.
+CONTROL_GOLDEN = os.path.join(ROOT, "tests", "data",
+                              "torch_control_golden.npz")
 # The keccak coprocessor phase: KeccakAir batches at kec_po2 10 (42
 # permutations, 4048 data columns) under the recursion's q50 system, and
 # both lattices at rec_po2 21 (the rv32im lift of a po2-17 DEFAULT_PS
@@ -161,10 +210,10 @@ PIPE_PER_CLOCK_PER_SM, ISSUE_PER_CLOCK_PER_SM = 64, 128
 # 32-bit instructions of one Baby Bear operation as (FMA pipe only, ALU
 # pipe only, either pipe), the sequence nvcc emits for csrc/babybear.cuh
 # on sm_90a (tools/sass_mix.py): a Montgomery product is IMAD.WIDE.U32,
-# IMAD, IMAD.HI.U32, a compare and two adds (carry, conditional subtract);
-# a modular add or subtract is a compare and two adds. An add may issue on
-# either pipe (IADD3 or IMAD.IADD); a compare only on the ALU.
-MUL_MIX, ADD_MIX = (3, 1, 2), (0, 1, 2)
+# IMAD, IMAD.HI.U32, an add (the carry) and one VIADDMNMX (the final
+# subtraction and min, ALU only); a modular add is an add and a VIADDMNMX.
+# An add may issue on either pipe (IADD3 or IMAD.IADD).
+MUL_MIX, ADD_MIX = (3, 1, 1), (0, 1, 1)
 # One Poseidon2 permutation in csrc/poseidon2.cu: 8 external rounds (24
 # S-boxes of 4 products, 24 constant adds, the 128-add external linear
 # layer), 21 internal rounds (one S-box, the 24 diagonal products, 48
@@ -225,7 +274,8 @@ def bound_ms(nbytes: float, muls: float, adds: float, sm_clocks_per_s: float,
     and `adds` adds or subtracts (plus `extra` (FMA, ALU, either)
     instructions) over `nbytes` of memory traffic: the larger of the
     bytes' time and the slowest of the FMA pipe, the ALU pipe and the
-    issue limit. -> (ms, "bytes" or "operations")."""
+    issue limit, at MUL_MIX and ADD_MIX instructions an operation. -> (ms,
+    "bytes" or "operations")."""
     fma, alu, either = (muls * m + adds * a + e
                         for m, a, e in zip(MUL_MIX, ADD_MIX, extra))
     t_ops = max(fma / PIPE_PER_CLOCK_PER_SM, alu / PIPE_PER_CLOCK_PER_SM,
@@ -265,7 +315,7 @@ def phase_build():
     from boundless_tpu_torch.zkvm import prove
 
     jobs = {"bt_poseidon2": P2K._lib, "bt_ntt": NK._lib,
-            "bt_issue_probe": probe_lib}
+            "bt_issue_probe": probe_lib, "bt_spin": spin_lib}
     for variant, air in prove._AIRS.items():
         jobs[f"bt_cons_{variant}"] = (lambda a=air: CK.build_kernels(a))
     errors = {}
@@ -307,6 +357,15 @@ def phase_build():
                           build.PTXAS_LOG["bt_ntt"], re.S)
         say("build", library="bt_ntt",
             registers_by_log_m=",".join(f"{lm}:{n}" for lm, n in regs))
+    if "bt_poseidon2" in build.PTXAS_LOG:  # registers, spills by layout
+        log = build.PTXAS_LOG["bt_poseidon2"]
+        funcs = re.findall(r"Compiling entry function '(\S*(?:sponge_kernelILi"
+                           r"(\d)E|tree_kernel)\S*)'.*?(\d+) bytes spill "
+                           r"stores.*?Used (\d+) registers", log, re.S)
+        lanes = {"6": "lanes1", "3": "lanes2", "2": "lanes4", "1": "lanes8"}
+        say("build", library="bt_poseidon2", registers_spill_bytes=",".join(
+            f"{lanes.get(k, 'tree_top')}:{regs}/{spill}"
+            for _, k, spill, regs in funcs))
     say("build", parallel_wall_seconds=f"{wall:.3f}")
     if errors:
         name, err = next(iter(errors.items()))
@@ -340,8 +399,58 @@ extern "C" int bt_probe(int op, uint32_t* x, unsigned blocks,
   else chains<0><<<blocks, threads, 0, (cudaStream_t)stream>>>(x, iters);
   return (int)cudaGetLastError();
 }
+// One warp, one dependent chain a lane: clocks per operation in clk[lane].
+// OP 0: bb::mul, 1: bb::add, 2: __shfl_xor_sync, 3: the sponge's group-sum
+// step bb::add(v, __shfl_xor_sync(v)).
+template <int OP>
+__global__ void latency(uint32_t* x, long long* clk, unsigned iters) {
+  const unsigned t = threadIdx.x;
+  uint32_t v = x[t] % bb::P;
+  const uint32_t b = (x[t] + 7) % bb::P;
+  const long long t0 = clock64();
+  for (unsigned i = 0; i < iters; ++i) {
+    if (OP == 0) v = bb::mul(v, b);
+    else if (OP == 1) v = bb::add(v, b);
+    else if (OP == 2) v = __shfl_xor_sync(0xffffffffu, v, 1);
+    else v = bb::add(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  }
+  const long long t1 = clock64();
+  x[t] = v;
+  clk[t] = t1 - t0;
+}
+template <int OP>
+void run_latency(uint32_t* x, long long* clk, unsigned iters, cudaStream_t s) {
+  latency<OP><<<1, 32, 0, s>>>(x, clk, iters);
+}
+extern "C" int bt_latency(int op, uint32_t* x, long long* clk,
+                          unsigned iters, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (op) {
+    case 0: run_latency<0>(x, clk, iters, s); break;
+    case 1: run_latency<1>(x, clk, iters, s); break;
+    case 2: run_latency<2>(x, clk, iters, s); break;
+    default: run_latency<3>(x, clk, iters, s); break;
+  }
+  return (int)cudaGetLastError();
+}
+"""
+# Holds the stream for `clocks` SM clocks, so that the host can queue work
+# behind it (device_ms). Its own library: it needs nothing of the port.
+SPIN_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void spin(long long clocks) {
+  const long long t0 = clock64();
+  while (clock64() - t0 < clocks) {
+  }
+}
+extern "C" int bt_spin(long long clocks, void* stream) {
+  spin<<<1, 1, 0, (cudaStream_t)stream>>>(clocks);
+  return (int)cudaGetLastError();
+}
 """
 PROBE_CHAINS, PROBE_ITERS, PROBE_THREADS = 8, 2048, 256
+LATENCY_ITERS = 4096
+LATENCY_OPS = ("mul", "add", "shfl", "shfl_add")
 
 
 def probe_lib():
@@ -353,7 +462,50 @@ def probe_lib():
     vp, u = ctypes.c_void_p, ctypes.c_uint
     lib.bt_probe.argtypes = [ctypes.c_int, vp, u, u, u, vp]
     lib.bt_probe.restype = ctypes.c_int
+    lib.bt_latency.argtypes = [ctypes.c_int, vp, vp, u, vp]
+    lib.bt_latency.restype = ctypes.c_int
     return lib
+
+
+def spin_lib():
+    import ctypes
+
+    from boundless_tpu_torch.kernels import build
+
+    lib = build.load_source("bt_spin", lambda: SPIN_SOURCE)
+    lib.bt_spin.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    lib.bt_spin.restype = ctypes.c_int
+    return lib
+
+
+def device_ms(fn, reps: int, sm_hz: float = 1.98e9) -> float:
+    """Mean device milliseconds of `fn` over `reps` runs, with the host's
+    cost per call hidden: a spin kernel holds the stream while the host
+    queues all `reps` calls, so the card runs them back to back (a call
+    that launches one small kernel costs the host more time than the card,
+    and `cuda_ms` then measures the host). The spin lasts twice the host's
+    own time for the calls plus 2 ms; were the host still queueing when it
+    ends, the gap would show in the time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    lib = spin_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    rc = lib.bt_spin(int((2 * host_s + 2e-3) * sm_hz), stream)
+    if rc:
+        raise RuntimeError(f"spin launch failed: CUDA error {rc}")
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def phase_probe(dev, sm_clocks_per_s):
@@ -379,39 +531,260 @@ def phase_probe(dev, sm_clocks_per_s):
             ops_per_s=f"{per_s:.4e}", instructions_per_op=sum(mix),
             int32_instructions_per_s=f"{per_s * sum(mix):.4e}",
             published_issue_per_s=f"{sm_clocks_per_s * ISSUE_PER_CLOCK_PER_SM:.4e}")
+    x = torch.arange(32, dtype=torch.int32, device=dev)
+    clk = torch.zeros(32, dtype=torch.int64, device=dev)
+    lat = {}
+    for op, name in enumerate(LATENCY_OPS):
+        for _ in range(2):  # the first run warms the instruction cache
+            rc = lib.bt_latency(op, x.data_ptr(), clk.data_ptr(),
+                                LATENCY_ITERS, stream)
+            if rc:
+                raise RuntimeError(f"latency launch failed: CUDA error {rc}")
+        torch.cuda.synchronize()
+        lat[name] = float(clk.max()) / LATENCY_ITERS
+    say("probe", latency="one warp, one dependent chain a lane",
+        **{f"{k}_clocks": f"{v:.2f}" for k, v in lat.items()},
+        **{f"permutation_critical_path_clocks_lanes{g}":
+           f"{p2_critical_path(g, lat):.0f}" for g in (1, 2, 4, 8)})
+    return lat
 
 
-def phase_kernel_sponge(dev, sm_clocks_per_s):
+def p2_critical_path(lanes: int, lat: dict) -> float:
+    """Clocks on the critical path of one permutation at `lanes` lanes a
+    hash (csrc/poseidon2.cu), from the probe's dependent latencies. The
+    external linear layer: M4 (5 adds deep), the tree of a lane's K chunk
+    sums, log2(lanes) shuffle-and-add steps and the add of the sum; an
+    external round: the constant's add, the S-box (4 products) and the
+    linear layer; an internal round (either scheme): the add of S to word
+    0, the constant's add, the S-box and the add of the rest of the sum;
+    a lane group also broadcasts word 0 and sums the group once."""
+    k = {1: 6, 2: 3, 4: 2, 8: 1}[lanes]
+    steps = lanes.bit_length() - 1
+    mul, add, step = lat["mul"], lat["add"], lat["shfl_add"]
+    linear = (5 + (k - 1).bit_length() + 1) * add + steps * step
+    external = add + 4 * mul + linear
+    internal = 4 * mul + 3 * add
+    prologue = (lat["shfl"] + steps * step) if lanes > 1 else 0.0
+    return linear + 8 * external + 21 * internal + prologue + add
+
+
+def latency_bound_ms(chain: int, lanes: int, lat: dict,
+                     sm_hz: float) -> float:
+    """The least time of a launch whose hashes are chains of `chain`
+    dependent permutations: the chain times a permutation's critical path
+    (each hash has at least that much latency, whatever runs beside it)."""
+    return chain * p2_critical_path(lanes, lat) / sm_hz * 1e3
+
+
+def sponge_bounds(n: int, c: int, lanes: int, sm_clocks_per_s: float,
+                  lat: dict):
+    """(throughput bound ms, its "bytes"/"operations", latency bound ms) of
+    a sponge launch over n rows of c columns (c = 0: a permutation of a
+    24-word state, all 24 words out)."""
+    from boundless_tpu_torch.core import poseidon2 as P2
+
+    chain = max(1, -(-c // P2.RATE))
+    words = (c + P2.DIGEST_WORDS) if c else 2 * P2.WIDTH
+    bms, by = bound_ms(4 * n * words, n * chain * P2_MULS,
+                       n * chain * P2_ADDS + n * c, sm_clocks_per_s)
+    sm_hz = sm_clocks_per_s / torch.cuda.get_device_properties(
+        0).multi_processor_count
+    return bms, by, latency_bound_ms(chain, lanes, lat, sm_hz)
+
+
+def sponge_ms(fn, n: int, c: int) -> float:
+    """Device ms of a sponge call: with the host's cost hidden for short
+    launches (device_ms), by CUDA events alone for long ones (a chain of 64
+    or more permutations, or over 2^20 in all)."""
+    chain = max(1, -(-c // 16))
+    if chain >= 64 or n * chain > (1 << 20):
+        return cuda_ms(fn, 5)
+    return device_ms(fn, max(3, min(50, (1 << 20) // (n * chain))))
+
+
+def once_ms(fn) -> float:
+    """Device ms of one call (CUDA events; no warm-up run)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def hash_lanes(x, lanes: int):
+    """`hash_rows` on the card in a forced layout (`lanes` lanes a hash)."""
+    from boundless_tpu_torch.core import poseidon2 as P2
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+    return P2K._sponge(x, None, P2.DIGEST_WORDS, lanes)
+
+
+def permute_lanes(states, lanes: int):
+    """`permute` on the card in a forced layout."""
+    from boundless_tpu_torch.core import poseidon2 as P2
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+    return P2K._sponge(states.new_empty((states.shape[0], 0)), states,
+                       P2.WIDTH, lanes)
+
+
+def check_commit(x, check, what):
+    """merkle.commit on the card: every level against the plain level loop
+    (the plain sponge's leaves, then core/poseidon2.hash_tree)."""
+    from boundless_tpu_torch.core import merkle
+    from boundless_tpu_torch.core import poseidon2 as P2
+
+    tree = merkle.commit(x)
+    leaves = P2.hash_rows(x)
+    want = [leaves] + P2.hash_tree(leaves)
+    if len(tree.levels) != len(want):
+        raise AssertionError(f"{what}: {len(tree.levels)} levels, plain "
+                             f"{len(want)}")
+    for d, (got, ref) in enumerate(zip(tree.levels, want)):
+        check(got, ref, f"{what} level {d}")
+    return len(want)
+
+
+def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
+    """Every layout and the tree top against the plain sponge; times at the
+    paths' shapes; the crossover and tree-top sweeps; a whole commit."""
     from boundless_tpu_torch.core import poseidon2 as P2
     from boundless_tpu_torch.kernels import poseidon2 as P2K
 
     rng = np.random.default_rng(SEED)
     check = Checker()
-    shapes = [(n, c) for n in KERNEL_SHAPES_N for c in KERNEL_SHAPES_C]
-    for n, c in shapes + list(MAIN_PATH_SHAPES):
+    ns = sorted(set(SPONGE_CHECK_N) | {f + d for f, _ in P2K.LANE_CROSSOVER
+                                       for d in (-1, 0, 1)})
+    for c in SPONGE_CHECK_C:
+        # rows are independent: the plain hash of the first n rows of one
+        # matrix is the first n rows of its plain hash
+        if c == "init":
+            x = rand_words(rng, (ns[-1], P2.WIDTH), dev)
+            want = P2.permute(x)
+        else:
+            x = rand_words(rng, (ns[-1], c), dev)
+            want = P2.hash_rows(x)
+        for n in ns:
+            for lanes in P2K.LANES:
+                got = permute_lanes(x[:n], lanes) if c == "init" else \
+                    hash_lanes(x[:n], lanes)
+                check(got, want[:n], f"lanes={lanes} N={n} C={c}")
+        del x, want, got
+    for n, c in MAIN_PATH_SHAPES:  # the default layout at the path's shapes
         x = rand_words(rng, (n, c), dev)
         check(P2K.hash_rows(x), P2.hash_rows(x), f"hash_rows N={n} C={c}")
     left = rand_words(rng, (1 << 17, 8), dev)
     right = rand_words(rng, (1 << 17, 8), dev)
-    check(P2K.hash_pairs(left, right), P2.hash_pair(left, right),
-          "hash_pairs N=2^17")
-    for n in (1, 1000):
-        st = rand_words(rng, (n, P2.WIDTH), dev)
-        check(P2K.permute(st), P2.permute(st), f"permute N={n}")
-
+    want = P2.hash_pair(left, right)
+    for lanes in P2K.LANES:
+        check(hash_lanes(torch.cat([left, right], 1), lanes), want,
+              f"hash_pairs N=2^17 lanes={lanes}")
+    tree_sizes = [1 << k for k in range(1, P2K.tree_max().bit_length())]
+    for m in tree_sizes:
+        level = rand_words(rng, (m, P2.DIGEST_WORDS), dev)
+        got, want = P2K.hash_tree(level), P2.hash_tree(level)
+        if len(got) != len(want):
+            raise AssertionError(f"tree top m={m}: {len(got)} levels")
+        for d, (g, w) in enumerate(zip(got, want)):
+            check(g, w, f"tree top m={m} level {d + 1}")
     leaf = rand_words(rng, LEAF_SHAPE, dev)
-    ms = cuda_ms(lambda: P2K.hash_rows(leaf), 10)
-    plain_ms = cuda_ms(lambda: P2.hash_rows(leaf), 2)
-    n, c = LEAF_SHAPE
-    perms = n * -(-c // P2.RATE)
-    bms, by = bound_ms(4 * n * (c + P2.DIGEST_WORDS), perms * P2_MULS,
-                       perms * P2_ADDS + n * c, sm_clocks_per_s)
-    say("kernel", kernel="poseidon2_sponge", checked=check.checked,
-        tolerance=0, max_abs_err=check.max_err, shape=f"{n}x{c}",
-        permutations=perms, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{bms:.4f}", bound_by=by)
-    return dict(max_abs_err=check.max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by)
+    levels = check_commit(leaf, check, f"merkle.commit {LEAF_SHAPE}")
+    say("kernel", kernel="poseidon2_sponge", layouts=",".join(
+        f"lanes{g}" for g in P2K.LANES), rows=",".join(map(str, ns)),
+        columns=",".join(map(str, SPONGE_CHECK_C)),
+        tree_top_nodes=f"{tree_sizes[0]}..{tree_sizes[-1]}",
+        commit_levels_checked=levels, checked=check.checked, tolerance=0,
+        max_abs_err=check.max_err)
+
+    stats = {}
+    for what, n, c in SPONGE_TIME_SHAPES:
+        if c:
+            x = rand_words(rng, (n, c), dev)
+            fns = {g: (lambda g=g: hash_lanes(x, g)) for g in P2K.LANES}
+            plain = lambda: P2.hash_rows(x)  # noqa: E731
+        else:
+            x = rand_words(rng, (n, P2.WIDTH), dev)
+            fns = {g: (lambda g=g: permute_lanes(x, g)) for g in P2K.LANES}
+            plain = lambda: P2.permute(x)  # noqa: E731
+        ms = {g: sponge_ms(fn, n, c) for g, fn in fns.items()}
+        plain_ms = once_ms(plain)
+        picked = P2K.lanes_for(n)
+        bms, by, lat_ms = sponge_bounds(n, c, picked, sm_clocks_per_s, lat)
+        say("kernel", kernel="poseidon2_sponge", shape=f"{n}x{c}",
+            what=what.replace(" ", "_"),
+            permutations_a_row=max(1, -(-c // P2.RATE)),
+            **{f"lanes{g}_ms": f"{v:.4f}" for g, v in ms.items()},
+            picked=f"lanes{picked}", kernel_ms=f"{ms[picked]:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+            latency_bound_ms=f"{lat_ms:.4f}")
+        if (n, c) == LEAF_SHAPE:
+            stats = dict(max_abs_err=check.max_err, ms=ms[picked],
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        del x
+
+    for n, c in SPONGE_SWEEP:
+        x = rand_words(rng, (n, c), dev)
+        ms = {g: sponge_ms(lambda g=g: hash_lanes(x, g), n, c)
+              for g in P2K.LANES}
+        say("sweep", shape=f"{n}x{c}",
+            **{f"lanes{g}_ms": f"{v:.4f}" for g, v in ms.items()},
+            fastest=f"lanes{min(ms, key=ms.get)}",
+            picked=f"lanes{P2K.lanes_for(n)}")
+    say("sweep", lane_crossover=",".join(f"lanes{g}:N>={f}" for f, g in
+                                         P2K.LANE_CROSSOVER),
+        below=f"lanes{P2K.LANES[-1]}")
+    for m in tree_sizes:
+        level = rand_words(rng, (m, P2.DIGEST_WORDS), dev)
+
+        def loop():
+            cur = level
+            while cur.shape[0] > 1:
+                cur = P2K.hash_rows(cur.view(-1, 2 * P2.DIGEST_WORDS))
+
+        say("sweep", tree_nodes=m, levels=m.bit_length() - 1,
+            tree_top_ms=f"{device_ms(lambda: P2K.hash_tree(level), 20):.4f}",
+            level_loop_ms=f"{device_ms(loop, 20):.4f}",
+            tree_top_host_ms=f"{host_ms(lambda: P2K.hash_tree(level), 20):.4f}",
+            level_loop_host_ms=f"{host_ms(loop, 20):.4f}")
+    say("sweep", tree_top=P2K.TREE_TOP)
+
+    # a whole commit of the main path's data group, and its parts
+    from boundless_tpu_torch.core import merkle
+
+    leaves = P2K.hash_rows(leaf)
+    tops = [leaves]
+    while tops[-1].shape[0] > P2K.TREE_TOP:
+        tops.append(P2K.hash_rows(tops[-1].view(-1, 2 * P2.DIGEST_WORDS)))
+
+    def levels_above():
+        cur = leaves
+        while cur.shape[0] > P2K.TREE_TOP:
+            cur = P2K.hash_rows(cur.view(-1, 2 * P2.DIGEST_WORDS))
+
+    P2K.LAUNCHES = 0
+    merkle.commit(leaf)
+    say("kernel", kernel="poseidon2_sponge",
+        commit=f"{LEAF_SHAPE[0]}x{LEAF_SHAPE[1]}", launches=P2K.LAUNCHES,
+        commit_ms=f"{cuda_ms(lambda: merkle.commit(leaf), 5):.4f}",
+        leaves_ms=f"{cuda_ms(lambda: P2K.hash_rows(leaf), 5):.4f}",
+        levels_to_tree_top_ms=f"{device_ms(levels_above, 10):.4f}",
+        level_launches=len(tops) - 1,
+        tree_top_ms=f"{device_ms(lambda: P2K.hash_tree(tops[-1]), 20):.4f}",
+        tree_top_levels=tops[-1].shape[0].bit_length() - 1)
+    return stats
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds a call, each call closed by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def phase_kernel_ntt(dev, sm_clocks_per_s):
@@ -557,6 +930,162 @@ def zero_counts():
     from boundless_tpu_torch.kernels import poseidon2 as P2K
 
     P2K.LAUNCHES = NK.LAUNCHES = CK.LAUNCHES = 0
+    for layout in P2K.LAUNCHES_BY_LAYOUT:
+        P2K.LAUNCHES_BY_LAYOUT[layout] = 0
+
+
+SPONGE_KINDS = ("leaves", "tree_levels", "tree_top", "permute", "absorb",
+                "verifier", "other")
+
+
+class SpongeProfile:
+    """The device time of every sponge launch while active, summed by kind:
+    `leaves` (the first launch of a merkle.commit), `tree_levels` (its
+    launches of one level each), `tree_top` (its hash_tree launch),
+    `permute` (Transcript._permute), `absorb` (the hash of
+    Transcript.mix_elems), `verifier` (merkle.verify_rows), else `other`;
+    `kind` labels every launch. Also the launches by layout.
+
+    Each launch is timed by CUDA events around it, behind a spin kernel of
+    SPIN_CLOCKS (~0.1 ms) queued first: the card is then still busy when
+    the host queues the events and the launch, so the events time the
+    kernel and not the card's wait for the host (a proof is host-bound).
+    The spins add device time to the profiled run, not to the sums. Works
+    on a tree whose wrapper launches through `_sponge` (and `hash_tree`
+    where it has one)."""
+
+    SPIN_CLOCKS = 200_000
+
+    def __init__(self, kind=None):
+        self.kind = kind
+        self.records = []  # (kind, layout, start event, end event)
+
+    def _kind_now(self):
+        if self.kind is not None:
+            return self.kind
+        if not self._spans:
+            return "other"
+        span = self._spans[-1]
+        if span[0] != "commit":
+            return span[0]
+        span[1] += 1
+        return "leaves" if span[1] == 1 else "tree_levels"
+
+    def __enter__(self):
+        from boundless_tpu_torch.core import merkle, transcript
+        from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+        self._spans, self._patched = [], []
+        spin = spin_lib()
+
+        def patch(owner, name, wrap):
+            orig = getattr(owner, name)
+            setattr(owner, name, wrap(orig))
+            self._patched.append((owner, name, orig))
+
+        def spanned(kind):
+            def wrap(orig):
+                def call(*args, **kwargs):
+                    self._spans.append([kind, 0])
+                    try:
+                        return orig(*args, **kwargs)
+                    finally:
+                        self._spans.pop()
+                return call
+            return wrap
+
+        def timed(layout_of):
+            def wrap(orig):
+                def call(*args, **kwargs):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    rc = spin.bt_spin(self.SPIN_CLOCKS,
+                                      torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"spin launch failed: CUDA error "
+                                           f"{rc}")
+                    start.record()
+                    out = orig(*args, **kwargs)
+                    end.record()
+                    layout = layout_of(args, kwargs)
+                    kind = self._kind_now()
+                    if layout == "tree_top" and kind == "tree_levels":
+                        kind = "tree_top"
+                    self.records.append((kind, layout, start, end))
+                    return out
+                return call
+            return wrap
+
+        def sponge_layout(args, kwargs):
+            lanes = args[3] if len(args) > 3 else kwargs.get("lanes")
+            if lanes is None:
+                lanes = P2K.lanes_for(args[0].shape[0]) \
+                    if hasattr(P2K, "lanes_for") else 1
+            return f"lanes{lanes}"
+
+        patch(merkle, "commit", spanned("commit"))
+        patch(merkle, "verify_rows", spanned("verifier"))
+        patch(transcript.Transcript, "_permute", spanned("permute"))
+        patch(transcript.Transcript, "mix_elems", spanned("absorb"))
+        patch(P2K, "_sponge", timed(sponge_layout))
+        if hasattr(P2K, "hash_tree"):
+            patch(P2K, "hash_tree", timed(lambda args, kwargs: "tree_top"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._patched):
+            setattr(owner, name, orig)
+
+    def summary(self) -> dict:
+        """{"<kind>_ms", "<kind>_launches", "total_ms", "layouts"}."""
+        torch.cuda.synchronize()
+        out = {f"{k}_{x}": 0 for k in SPONGE_KINDS for x in ("launches",
+                                                              "ms")}
+        layouts = {}
+        for kind, layout, start, end in self.records:
+            out[f"{kind}_launches"] += 1
+            out[f"{kind}_ms"] += start.elapsed_time(end)
+            layouts[layout] = layouts.get(layout, 0) + 1
+        out["total_ms"] = sum(out[f"{k}_ms"] for k in SPONGE_KINDS)
+        out["layouts"] = layouts
+        return out
+
+
+def profile_sponge(phase: str, what: str, make, kind=None):
+    """The sponge's device time by kind in one more run of `make` (a warm
+    proof or verifier), apart from the timed and counted runs, whose walls
+    must not hold SpongeProfile's spins and events."""
+    with SpongeProfile(kind) as sponge:
+        out = make()
+    say(phase, stage=what, profiled="a separate warm run",
+        **sponge_fields(sponge.summary()))
+    return out
+
+
+def check_layouts(what: str):
+    """A proof runs the transcript at 8 lanes a hash and every commit's
+    tree top in one launch: both counts must be > 0."""
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+    seen = P2K.LAUNCHES_BY_LAYOUT
+    if seen[f"lanes{P2K.LANES[-1]}"] <= 0 or seen["tree_top"] <= 0:
+        raise AssertionError(f"{what}: a sponge layout did not run: {seen}")
+
+
+def layouts_now() -> str:
+    """The sponge's launches by layout since the counts were zeroed."""
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+    return json.dumps(P2K.LAUNCHES_BY_LAYOUT).replace(" ", "")
+
+
+def sponge_fields(summary: dict) -> dict:
+    """A SpongeProfile summary as `say` fields."""
+    fields = {f"sponge_{k}": (f"{v:.4f}" if k.endswith("_ms") else v)
+              for k, v in summary.items() if k != "layouts" and v}
+    fields["sponge_layouts"] = json.dumps(summary["layouts"]).replace(
+        " ", "")
+    return fields
 
 
 def phase_golden(dev, cons_check):
@@ -632,6 +1161,7 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
         torch.cuda.synchronize()
         t_prove = time.perf_counter() - t0
         launches = counts()  # the main path's own: executor + witness + prove
+        layouts = dict(P2K.LAUNCHES_BY_LAYOUT)
     peak = torch.cuda.max_memory_allocated()
     if min(launches.values()) <= 0:
         raise AssertionError(f"prove_segment skipped a kernel: {launches}")
@@ -641,6 +1171,9 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     if prove.NATIVE_WITNESSES != native_before + 1:
         raise AssertionError("the witness did not come from the native C++ "
                              "generator")
+    if min(layouts[f"lanes{g}"] for g in (1, 2, 8)) <= 0 or \
+            layouts["tree_top"] <= 0:
+        raise AssertionError(f"the proof skipped a sponge layout: {layouts}")
     P2K.LAUNCHES = 0
     t0 = time.perf_counter()
     ok = prove.verify_segment(receipt, prove.DEFAULT_PS)
@@ -666,6 +1199,11 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
         launches=json.dumps(launches).replace(" ", ""),
         verify_sponge_launches=verify_launches, tampered="rejected",
         eager_combine_rows_calls=eager.calls)
+    say("main", sponge_by_layout=json.dumps(layouts).replace(" ", ""))
+    again = profile_sponge("main", "proof", lambda: prove.prove_segment(
+        image, seg, prove.DEFAULT_PS, device=dev))
+    profile_sponge("main", "verify", lambda: prove.verify_segment(
+        again, prove.DEFAULT_PS), kind="verifier")
 
     # The constraint kernel on the proof's own 4N grid.
     if len(cap.calls) != 1:
@@ -734,7 +1272,7 @@ class TimeCalls:
         setattr(self.module, self.name, self._orig)
 
 
-def phase_recursion_kernels(dev, sm_clocks_per_s):
+def phase_recursion_kernels(dev, sm_clocks_per_s, lat):
     """The sponge and the NTT at the recursion proofs' largest shapes."""
     from boundless_tpu_torch.core import ntt as NTT
     from boundless_tpu_torch.core import poseidon2 as P2
@@ -744,17 +1282,23 @@ def phase_recursion_kernels(dev, sm_clocks_per_s):
     rng = np.random.default_rng(SEED + 2)
     check = Checker()
     x = rand_words(rng, REC_SPONGE_SHAPE, dev)
-    check(P2K.hash_rows(x), P2.hash_rows(x), "hash_rows rec leaves")
+    want = P2.hash_rows(x)
+    for lanes in P2K.LANES:
+        check(hash_lanes(x, lanes), want, f"rec leaves lanes={lanes}")
+    del want
+    levels = check_commit(x, check, f"merkle.commit {REC_SPONGE_SHAPE}")
     n, c = REC_SPONGE_SHAPE
-    perms = n * -(-c // P2.RATE)
-    ms = cuda_ms(lambda: P2K.hash_rows(x), 5)
+    ms = {g: cuda_ms(lambda g=g: hash_lanes(x, g), 5) for g in P2K.LANES}
     plain_ms = cuda_ms(lambda: P2.hash_rows(x), 1)
-    bms, by = bound_ms(4 * n * (c + P2.DIGEST_WORDS), perms * P2_MULS,
-                       perms * P2_ADDS + n * c, sm_clocks_per_s)
+    picked = P2K.lanes_for(n)
+    bms, by, lat_ms = sponge_bounds(n, c, picked, sm_clocks_per_s, lat)
     say("kernel", kernel="poseidon2_sponge", path="recursion",
-        shape=f"{n}x{c}", tolerance=0, max_abs_err=check.max_err,
-        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{bms:.4f}", bound_by=by)
+        shape=f"{n}x{c}", commit_levels_checked=levels, tolerance=0,
+        max_abs_err=check.max_err,
+        **{f"lanes{g}_ms": f"{v:.4f}" for g, v in ms.items()},
+        picked=f"lanes{picked}", kernel_ms=f"{ms[picked]:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+        latency_bound_ms=f"{lat_ms:.4f}")
     del x
     x = rand_words(rng, REC_NTT_SHAPE, dev)
     before = NK.LAUNCHES
@@ -782,6 +1326,14 @@ def rom_sha256(prog) -> str:
 
     return hashlib.sha256(prog.ctrl_trace_np().astype("<u4").tobytes()
                           ).hexdigest()
+
+
+def check_control_id(got, gold, key: str):
+    """A program's control ID (8 canonical words) against the JAX golden."""
+    want = tuple(int(x) for x in gold[f"{key}/control_id"])
+    if tuple(int(x) for x in got) != want:
+        raise AssertionError(f"{key}: control ID {tuple(got)} differs from "
+                             f"JAX's {want}")
 
 
 def phase_recursion(dev):
@@ -825,12 +1377,16 @@ def phase_recursion(dev):
         rec_ps=stark.ProofSystem(**REC_PS_ARGS), variants=("rv32i",))
     system = succinct.SuccinctSystem(params, device=dev)
     gold = np.load(REC_GOLDEN)
+    ctrl_gold = np.load(CONTROL_GOLDEN)
     for kind, prog in system.progs.items():
         if rom_sha256(prog) != str(gold[f"prod/{kind}/rom_sha256"]):
             raise AssertionError(f"{kind} ROM differs from the JAX digest")
+        check_control_id(system.control_ids[kind], ctrl_gold,
+                         f"rec20/{kind}")
         say("recursion", stage="rom", program=kind,
             rows=int(gold[f"prod/{kind}/rows"]), rom="equal to JAX sha256",
-            control_id=",".join(str(x) for x in system.control_ids[kind]))
+            control_id=",".join(str(x) for x in system.control_ids[kind]),
+            control_id_vs_jax="equal")
     say("recursion", stage="setup", exec_s=f"{t_exec:.3f}",
         segment_pre_chains_s=f"{t_chains:.4f}",
         program_build_s=f"{system.seconds['program_build']:.3f}",
@@ -856,6 +1412,7 @@ def phase_recursion(dev):
         if launches["cons_eval"] != 0:
             raise AssertionError(f"{what}: RecursionAir ran the constraint "
                                  f"kernel")
+        check_layouts(what)
         if r.proof.data_root.device != dev:
             raise AssertionError(f"{what}: the proof did not run on the card")
         for k, v in launches.items():
@@ -867,7 +1424,8 @@ def phase_recursion(dev):
             prove_s=f"{sec['prove']:.3f}",
             quotient_s=f"{sum(quotient.seconds):.3f}",
             max_memory_allocated=torch.cuda.max_memory_allocated(),
-            launches=json.dumps(launches).replace(" ", ""))
+            launches=json.dumps(launches).replace(" ", ""),
+            sponge_by_layout=layouts_now())
         return r
 
     lifts = [recursion_proof(f"lift{seg.index}", lambda sr=sr, seg=seg:
@@ -878,6 +1436,9 @@ def phase_recursion(dev):
     native = vm.NATIVE_EVALS - evals_before
     if native != 3:
         raise AssertionError(f"{native} native rec_eval runs for 3 proofs")
+    seg = res.segments[-1]
+    profile_sponge("recursion", f"lift{seg.index}", lambda: system.lift(
+        seg_receipts[-1], chains[seg.index], seg.pre_mem, seg.index))
 
     words = [int(w) for w in ex.journal_words]
     session = succinct.finalize_session(joined, words, image.entry,
@@ -909,7 +1470,7 @@ def phase_recursion(dev):
     return rec_launches
 
 
-def phase_coproc_kernels(dev, sm_clocks_per_s):
+def phase_coproc_kernels(dev, sm_clocks_per_s, lat):
     """The sponge and the NTT at the KeccakAir proof's shapes (4048 data
     columns: 126 whole 32-column NTT strips and a 16-column tail; 253
     rate blocks a leaf)."""
@@ -922,14 +1483,14 @@ def phase_coproc_kernels(dev, sm_clocks_per_s):
     x = rand_words(rng, KEC_SPONGE_SHAPE, dev)
     check(P2K.hash_rows(x), P2.hash_rows(x), "hash_rows keccak leaves")
     n, c = KEC_SPONGE_SHAPE
-    perms = n * -(-c // P2.RATE)
     ms = cuda_ms(lambda: P2K.hash_rows(x), 5)
     plain_ms = cuda_ms(lambda: P2.hash_rows(x), 1)
-    bms, by = bound_ms(4 * n * (c + P2.DIGEST_WORDS), perms * P2_MULS,
-                       perms * P2_ADDS + n * c, sm_clocks_per_s)
+    picked = P2K.lanes_for(n)
+    bms, by, lat_ms = sponge_bounds(n, c, picked, sm_clocks_per_s, lat)
     say("coproc", kernel="poseidon2_sponge", shape=f"{n}x{c}", tolerance=0,
-        max_abs_err=check.max_err, kernel_ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+        max_abs_err=check.max_err, picked=f"lanes{picked}",
+        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bms:.4f}", bound_by=by, latency_bound_ms=f"{lat_ms:.4f}")
     glue = (("intt", NTT.intt, NTT.intt_plain, ()),
             ("coset_evaluate", NTT.coset_evaluate, NTT.coset_evaluate_plain,
              (INV_RATE_GRID,)))
@@ -960,6 +1521,7 @@ def phase_coproc(dev, cons_check):
     lifted and united."""
     from boundless_tpu_torch.core import field as F
     from boundless_tpu_torch.prover import stark
+    from boundless_tpu_torch.recursion import air as rair
     from boundless_tpu_torch.recursion import coproc_succinct as cs
     from boundless_tpu_torch.recursion import succinct, vm
     from boundless_tpu_torch.zkvm import coproc, guests, paging, prove
@@ -987,6 +1549,7 @@ def phase_coproc(dev, cons_check):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = counts()
+        check_layouts(what)
         for k, v in launches.items():
             coproc_launches[k] += v
         if launches["poseidon2_sponge"] <= 0 or \
@@ -1004,7 +1567,8 @@ def phase_coproc(dev, cons_check):
         say("coproc", stage=what, wall_s=f"{wall:.3f}", **sec,
             quotient_s=f"{sum(quotient.seconds):.3f}",
             max_memory_allocated=torch.cuda.max_memory_allocated(),
-            launches=json.dumps(launches).replace(" ", ""))
+            launches=json.dumps(launches).replace(" ", ""),
+            sponge_by_layout=layouts_now())
         return r
 
     # the keccak guest's session: one po2-17 segment, one permutation
@@ -1050,14 +1614,21 @@ def phase_coproc(dev, cons_check):
     if cid != tuple(int(x) for x in gold["prod/circuit_id"]):
         raise AssertionError("the keccak circuit id differs from JAX's")
     ids = dict(system.control_ids, **csys.control_ids)
+    # the placeholder build's control ID, as the systems compute theirs
+    ids["resolve_coproc"] = tuple(int(x) for x in F.from_mont(
+        stark.control_root_of(rair.AIR, COPROC_REC_PO2, rair.rom_trace(
+            progs["resolve_coproc"], 1 << COPROC_REC_PO2, dev), q50)))
+    ctrl_gold = np.load(CONTROL_GOLDEN)
     for kind, prog in progs.items():
         if rom_sha256(prog) != str(gold[f"prod/{kind}/rom_sha256"]):
             raise AssertionError(f"{kind} ROM differs from the JAX digest")
+        check_control_id(ids[kind], ctrl_gold, f"rec21/{kind}")
         say("coproc", stage="rom", program=kind,
             rows=int(gold[f"prod/{kind}/rows"]), rom="equal to JAX sha256",
             built_with=("placeholder constants" if kind == "resolve_coproc"
                         else "the real constants"),
-            control_id=",".join(str(x) for x in ids[kind]))
+            control_id=",".join(str(x) for x in ids[kind]),
+            control_id_vs_jax="equal")
     say("coproc", stage="setup",
         coproc_program_build_s=f"{csys.seconds['program_build']:.3f}",
         coproc_control_ids_s=f"{csys.seconds['control_ids']:.3f}",
@@ -1149,6 +1720,10 @@ def phase_coproc(dev, cons_check):
     native = vm.NATIVE_EVALS - evals_before
     if native != 6:
         raise AssertionError(f"{native} native rec_eval runs for 6 proofs")
+    again = profile_sponge("coproc", "keccak_proof guest", lambda:
+                           coproc.prove_keccak(ex.keccak_states, KEC_PO2, q50,
+                                               device=dev))
+    profile_sponge("coproc", "lift_keccak guest", lambda: csys.lift(again))
     say("coproc", stage="union", permutations="+".join(map(str, UNION_PERMS)),
         span=f"{span[0]}->{span[1]}", verify="accepted",
         wrong_order="raised", native_rec_evals=native,
@@ -1168,21 +1743,24 @@ KERNELS = (
 
 def main():
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
     sm_clocks_per_s = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    phase_probe(dev, sm_clocks_per_s)
-    stats = {"poseidon2_sponge": phase_kernel_sponge(dev, sm_clocks_per_s),
+    lat = phase_probe(dev, sm_clocks_per_s)
+    stats = {"poseidon2_sponge": phase_kernel_sponge(dev, sm_clocks_per_s,
+                                                     lat),
              "ntt_sub_transform": phase_kernel_ntt(dev, sm_clocks_per_s)}
     cons_check = Checker()
     phase_golden(dev, cons_check)
     launches, stats["cons_eval"] = phase_main(dev, cons_check,
                                               sm_clocks_per_s)
-    phase_recursion_kernels(dev, sm_clocks_per_s)
+    phase_recursion_kernels(dev, sm_clocks_per_s, lat)
     rec_launches = phase_recursion(dev)
-    phase_coproc_kernels(dev, sm_clocks_per_s)
+    phase_coproc_kernels(dev, sm_clocks_per_s, lat)
     coproc_launches = phase_coproc(dev, cons_check)
+    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "launches_recursion": rec_launches[name],

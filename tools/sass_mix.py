@@ -6,7 +6,8 @@ Builds the three kernel libraries as the port does at first use (into
 `build/`), plus a probe of 64-long chains of each Baby Bear operation of
 `csrc/babybear.cuh` (`bb::mul`, `bb::add`, `bb::sub`), disassembles them
 with `cuobjdump -sass` and prints, by instruction class (FMA pipe: IMAD*,
-IMUL*; ALU only: ISETP, SEL, LOP3, SHF, LEA, PLOP3, PRMT, IMNMX; adds nvcc
+IMUL*; ALU only: ISETP, SEL, LOP3, SHF, LEA, PLOP3, PRMT, IMNMX, VIMNMX,
+VIADDMNMX; adds nvcc
 places on either pipe: IADD3, VIADD; memory: LD*, ST*; other; NOPs left
 out):
 
@@ -47,7 +48,8 @@ from chip_smoke import ADD_MIX, MUL_MIX  # noqa: E402
 
 CHAIN = 64
 CLASSES = ("fma", "alu", "either", "mem", "other")
-ALU = {"ISETP", "SEL", "LOP3", "SHF", "LEA", "PLOP3", "PRMT", "IMNMX"}
+ALU = {"ISETP", "SEL", "LOP3", "SHF", "LEA", "PLOP3", "PRMT", "IMNMX",
+       "VIMNMX", "VIADDMNMX"}
 EITHER = {"IADD3", "VIADD"}
 INSTR = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
