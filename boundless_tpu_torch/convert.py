@@ -1,8 +1,9 @@
 """numpy <-> port converters for every array the prover carries across.
 
-A proof, its public values, the Poseidon2 tables and the recursion
-receipts are this system's "weights": tests move them between the JAX
-package and the port as numpy arrays. The flat proof dictionary is keyed
+A proof, its public values, the Poseidon2 tables, the recursion
+receipts, the p254 final-shrink receipt and the Groth16 objects (proofs,
+keys, seals, receipts) are this system's "weights": tests move them
+between the JAX package and the port as numpy arrays and Python ints. The flat proof dictionary is keyed
 by field path (`open_data.rows`, `fri_proof.round_roots.0`, ...) so that
 a proof of either package flattens to the same keys. This module imports no JAX: it
 reads leaves through `numpy.asarray`.
@@ -19,8 +20,10 @@ from .air.rv32im import PublicValues
 from .core import field as F
 from .core import fri
 from .core import poseidon2 as P2
+from .groth16 import bn254, protocol, wrap
+from .kernels import poseidon254 as P254K
 from .prover import stark
-from .recursion import claims, coproc_succinct, succinct
+from .recursion import claims, coproc_succinct, identity, succinct
 from .zkvm import coproc
 
 _OPENINGS = ("open_ctrl", "open_data", "open_accum", "open_check")
@@ -60,9 +63,22 @@ def proof_to_numpy(proof, prefix: str = "", out=None) -> dict:
     return out
 
 
-def proof_from_numpy(flat: dict, device="cpu") -> stark.SegmentProof:
-    """Inverse of `proof_to_numpy`, building the port's SegmentProof."""
-    t = lambda k: tensor(flat[k], device)  # noqa: E731
+def _is_digest(key: str) -> bool:
+    """Merkle roots and paths: the digest fields of a flat proof."""
+    return (key.endswith("_root") or key.endswith(".paths")
+            or key.startswith("fri_proof.round_roots.")
+            or key.startswith("fri_proof.round_paths."))
+
+
+def proof_from_numpy(flat: dict, device="cpu",
+                     p254: bool = False) -> stark.SegmentProof:
+    """Inverse of `proof_to_numpy`, building the port's SegmentProof.
+    `p254`: a poseidon254-suite proof, whose digests are raw u32 words
+    (held as int32 bit patterns) and not field words."""
+    def t(k):
+        if p254 and _is_digest(k):
+            return P254K.words_tensor(flat[k], device)
+        return tensor(flat[k], device)
     fields = {}
     for name in stark.SegmentProof._fields:
         if name in _OPENINGS:
@@ -191,3 +207,109 @@ def keccak_receipt_from_numpy(flat: dict, device="cpu"
         proof=proof_from_numpy(proof, device) if proof else None,
         states_pub=np.asarray(flat["states_pub"], dtype=np.int64),
         po2=int(flat["po2"]), count=int(flat["count"]))
+
+
+def p254_receipt_to_numpy(r) -> dict:
+    """P254Receipt (either package) -> {key: array}: po2, pub_vals,
+    `claim.<field>` and `proof.<field path>` (digests as raw u32 words)."""
+    out = {"po2": np.array(int(r.po2)),
+           "pub_vals": np.asarray(r.pub_vals, dtype=np.int64)}
+    out.update({f"claim.{k}": v for k, v in claim_to_numpy(r.claim).items()})
+    out.update({f"proof.{k}": v
+                for k, v in proof_to_numpy(r.proof).items()})
+    return out
+
+
+def p254_receipt_from_numpy(flat: dict, device="cpu"
+                            ) -> identity.P254Receipt:
+    """Inverse of `p254_receipt_to_numpy`, with the proof on `device`."""
+    return identity.P254Receipt(
+        proof=proof_from_numpy(_sub(flat, "proof."), device, p254=True),
+        claim=claim_from_numpy(_sub(flat, "claim.")),
+        pub_vals=tuple(int(x) for x in flat["pub_vals"]),
+        po2=int(flat["po2"]))
+
+
+# ---------------------------------------------------------------------------
+# Groth16 objects <-> Python ints
+# ---------------------------------------------------------------------------
+
+# dataclass fields that hold G1 points (one or a list); G2 points are
+# already Python-int tuples ((x0, x1), (y0, y1)) or None in both packages
+_G1_FIELDS = {"a", "c", "alpha_g1", "beta_g1", "delta_g1", "ic", "a_g1",
+              "b_g1", "l_g1", "h_g1"}
+
+
+def _g1_ints(p):
+    return p.to_affine()  # (x, y) ints, None at infinity
+
+
+def groth16_to_ints(obj) -> dict:
+    """A Groth16 `Proof`, `VerifyingKey` or `ProvingKey` of either package
+    -> {field: value}: G1 points as affine (x, y) ints (None at infinity),
+    lists of them as lists, G2 points as they are."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if f.name in _G1_FIELDS:
+            v = ([_g1_ints(p) for p in v] if isinstance(v, list)
+                 else _g1_ints(v))
+        out[f.name] = v
+    return out
+
+
+def groth16_from_ints(cls, d: dict, g1=bn254.G1):
+    """Inverse of `groth16_to_ints` into `cls` (the port's
+    `protocol.Proof` / `VerifyingKey` / `ProvingKey`, or the reference's,
+    with its `G1` class as `g1`)."""
+    fields = {}
+    for f in dataclasses.fields(cls):
+        v = d[f.name]
+        if f.name in _G1_FIELDS:
+            v = ([g1.from_affine(p) for p in v] if isinstance(v, list)
+                 else g1.from_affine(v))
+        fields[f.name] = v
+    return cls(**fields)
+
+
+def seal_to_ints(seal) -> dict:
+    """Groth16Seal (either package) -> {field: ints / numpy}."""
+    return {"proof": groth16_to_ints(seal.proof),
+            "vk": groth16_to_ints(seal.vk),
+            "publics": tuple(int(x) for x in seal.publics),
+            "claim": claim_to_numpy(seal.claim),
+            "entry_pc": int(seal.entry_pc),
+            "image_mem_root": (None if seal.image_mem_root is None else
+                               tuple(int(x) for x in seal.image_mem_root)),
+            "allowed_root": tuple(int(x) for x in seal.allowed_root)}
+
+
+def seal_from_ints(d: dict) -> wrap.Groth16Seal:
+    """Inverse of `seal_to_ints`, building the port's Groth16Seal."""
+    return wrap.Groth16Seal(
+        proof=groth16_from_ints(protocol.Proof, d["proof"]),
+        vk=groth16_from_ints(protocol.VerifyingKey, d["vk"]),
+        publics=tuple(d["publics"]), claim=claim_from_numpy(d["claim"]),
+        entry_pc=d["entry_pc"], image_mem_root=d["image_mem_root"],
+        allowed_root=tuple(d["allowed_root"]))
+
+
+def groth16_receipt_to_ints(r) -> dict:
+    """A real (not dev-mode) Groth16Receipt of either package -> dict."""
+    if r.dev_mode:
+        raise ValueError("a dev-mode receipt carries a session receipt, "
+                         "not a seal")
+    return {"kind": r.kind, "selector": r.selector,
+            "claim_digest": bytes(r.claim_digest),
+            "journal": bytes(r.journal),
+            "image_id": tuple(int(x) for x in r.image_id),
+            "inner": seal_to_ints(r.inner)}
+
+
+def groth16_receipt_from_ints(d: dict) -> wrap.Groth16Receipt:
+    """Inverse of `groth16_receipt_to_ints`, building the port's."""
+    return wrap.Groth16Receipt(
+        kind=d["kind"], selector=d["selector"],
+        claim_digest=d["claim_digest"], journal=d["journal"],
+        image_id=tuple(d["image_id"]), dev_mode=False,
+        inner=seal_from_ints(d["inner"]))

@@ -33,15 +33,15 @@ from . import build
 
 LANES = (1, 2, 4, 8)  # the layouts: lanes a hash
 # (fewest rows, lanes a hash), first match wins; fewer rows take 8 lanes.
-# Measured by chip_smoke.py ([sweep]) on an H100 (700 W): one thread a
-# hash is the fastest from 2^15 rows (1,024 warps, about two a scheduler),
-# 2 lanes from 2^13, 8 lanes below; 4 lanes never leads by more than 1%
-# (the tree top uses it).
+# Measured by the sweep now in `tools/sponge_variants.py --sweep` on an
+# H100 (700 W): one thread a hash is the fastest from 2^15 rows (1,024
+# warps, about two a scheduler), 2 lanes from 2^13, 8 lanes below; 4 lanes
+# never leads by more than 1% (the tree top uses it).
 LANE_CROSSOVER = ((1 << 15, 1), (1 << 13, 2))
 # merkle.commit hashes one launch a level down to a level of at most
 # TREE_TOP nodes and the rest in one `hash_tree` launch. The tree top runs
 # on one SM: up to 128 nodes it takes no more device time than the level
-# loop and half its host time (chip_smoke.py [sweep], H100 700 W);
+# loop and half its host time (the same sweep, H100 700 W);
 # above that its device time grows past the loop's.
 TREE_TOP = 1 << 7
 

@@ -646,6 +646,10 @@ class RecReceipt:
     pub_vals: tuple  # 24 canonical scalars
     po2: int
 
+    def claim_digest(self) -> tuple:
+        return self.claim.digest()
+
+
 class SuccinctError(Exception):
     pass
 

@@ -7,9 +7,10 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               `nvidia-smi --query-gpu=name,power.limit` and the card's
               int32 issue rate (SMs x 128 per clock x the maximum SM
               clock; each bound also holds the FMA and ALU pipes to 64).
-  2. build    compiles the three kernel libraries with nvcc for sm_90a, one
+  2. build    compiles the kernel libraries with nvcc for sm_90a, one
               nvcc per library, all started together: the Poseidon2 sponge
-              (csrc/poseidon2.cu), the NTT sub-transform (csrc/ntt.cu) and
+              (csrc/poseidon2.cu), the NTT sub-transform (csrc/ntt.cu), the
+              p254 sponge (csrc/poseidon254.cu), the MSM (csrc/msm.cu) and
               the generated fused constraint kernels of both AIR variants
               (kernels/cons.py), plus the probes and the spin kernel of
               device_ms; prints nvcc
@@ -32,9 +33,9 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               time, the host's cost hidden behind a spin kernel where
               launches are short) every layout at SPONGE_TIME_SHAPES beside
               the plain version, the throughput bound and the latency
-              bound; a sweep of N for the crossovers, the tree top against
-              the level loop at every size (device and host ms), and a
-              whole commit with its leaves, levels and tree top apart.
+              bound, and a whole commit with its leaves, levels and tree
+              top apart (the sweeps of N for the crossovers and of the
+              tree top's size are `tools/sponge_variants.py --sweep`).
               NTT: the sub-transform at M in {2, 64, 512, 1024} x L in {1,
               7, 128, 392}, both directions, with the four-step store; the
               whole four-step at the main path's transforms; the LDE glue
@@ -112,9 +113,39 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               every recursion data trace came from rec_eval. The sponge's
               device time by kind in one more, profiled KeccakAir proof
               and lift_keccak.
-The last two lines are the kernel table (each kernel's launches on the
-main path, in the recursion proofs and in the coproc phase, max abs
-error, ms, plain ms and bound ms) and the contract line
+  9. p254     the p254 sponge (csrc/poseidon254.cu) against its plain
+              version (the Python-int hash), bit for bit, at 2^10 rows x
+              48, 64, 24 and 16 columns (the identity proof's groups), on
+              2^10 pairs and every level of a 2^10-leaf commit; device ms
+              at 2^16 x 64, of the tree levels above them and of the whole
+              commit, each beside its bound; the plain ms at 2^10 x 64.
+ 10. msm      the BN254 MSM (csrc/msm.cu) against its plain torch version
+              at 2^10 points and against the host Pippenger
+              (groth16/msm.py) at 2^12, with zero scalars, repeated digits
+              and points, a point and its negation, and a point at
+              infinity; then P_i = i * G at 2^16, 2^18 and 2^20 points,
+              where sum_i s_i P_i must equal (sum_i i s_i mod r) * G, and
+              the kernel's device ms there beside its bound; the plain ms
+              at 2^10.
+ 11. groth16  the CRS prover's path: a Merkle path of Poseidon-BN254 pair
+              gadgets (depth GROTH16_DEPTH) as an R1CS, qap.setup_sparse
+              (host) and qap.prove_sparse on the card; the proof verifies,
+              a tampered public is refused, the MSM kernel launched.
+ 12. wrap     the JAX CI wrap chain (tests/test_groth16_wrap.py:20-44):
+              echo guest words([1, 7]), seg po2 6, q2 / fri_min 16 / rate
+              1/2, rec_po2 17: segment proof, lift, finalize_session,
+              identity_p254 shrink (P254System.verify accepts it),
+              wrap.compress(kind="groth16") and the pairing-only
+              wrap.verify; the EVM seal round-trips; a tampered journal and
+              a tampered claim are refused. Prints each stage's host
+              seconds (after a synchronize), the p254 sponge's device ms
+              and launches in the shrink, R1CS rows and variables, the
+              prover mode and the peak device memory.
+Each of the last four phases prints its seconds. The last two lines are
+the kernel table (each kernel's launches on its own path, on the main
+path for the segment prover's three kernels, [wrap] for the p254 sponge
+and [groth16] for the MSM, and on every other path; max abs error, ms,
+plain ms and bound ms) and the contract line
 {"ok": true, "device": {...}}.
 """
 
@@ -149,7 +180,6 @@ SPONGE_TIME_SHAPES = (("transcript permute", 1, 0),
                       ("KeccakAir DEEP absorb", 1, KEC_DEEP_WORDS),
                       ("KeccakAir leaves", 1 << 11, 4048),
                       ("main leaves", *LEAF_SHAPE))
-SPONGE_SWEEP = tuple((1 << k, c) for c in (16, 392) for k in range(10, 18))
 # Sponge inputs of the po2-17 rv32i main path: ctrl / data / accum / check
 # leaves on the 2^18-row commit domain, a FRI group matrix, the DEEP-tap
 # transcript absorb, and opened rows at 100 queries.
@@ -310,11 +340,14 @@ def phase_build():
     """One nvcc per library, all started together."""
     from boundless_tpu_torch.kernels import build
     from boundless_tpu_torch.kernels import cons as CK
+    from boundless_tpu_torch.kernels import msm as MK
     from boundless_tpu_torch.kernels import ntt as NK
     from boundless_tpu_torch.kernels import poseidon2 as P2K
+    from boundless_tpu_torch.kernels import poseidon254 as P254K
     from boundless_tpu_torch.zkvm import prove
 
     jobs = {"bt_poseidon2": P2K._lib, "bt_ntt": NK._lib,
+            "bt_poseidon254": P254K._lib, "bt_msm": MK._lib,
             "bt_issue_probe": probe_lib, "bt_spin": spin_lib}
     for variant, air in prove._AIRS.items():
         jobs[f"bt_cons_{variant}"] = (lambda a=air: CK.build_kernels(a))
@@ -649,7 +682,8 @@ def check_commit(x, check, what):
 
 def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
     """Every layout and the tree top against the plain sponge; times at the
-    paths' shapes; the crossover and tree-top sweeps; a whole commit."""
+    paths' shapes; a whole commit. (The sweeps that chose the crossovers
+    and the tree top's size are `tools/sponge_variants.py --sweep`.)"""
     from boundless_tpu_torch.core import poseidon2 as P2
     from boundless_tpu_torch.kernels import poseidon2 as P2K
 
@@ -721,34 +755,10 @@ def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
             latency_bound_ms=f"{lat_ms:.4f}")
         if (n, c) == LEAF_SHAPE:
             stats = dict(max_abs_err=check.max_err, ms=ms[picked],
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         shape=f"{n}x{c}", plain_shape=f"{n}x{c}")
         del x
 
-    for n, c in SPONGE_SWEEP:
-        x = rand_words(rng, (n, c), dev)
-        ms = {g: sponge_ms(lambda g=g: hash_lanes(x, g), n, c)
-              for g in P2K.LANES}
-        say("sweep", shape=f"{n}x{c}",
-            **{f"lanes{g}_ms": f"{v:.4f}" for g, v in ms.items()},
-            fastest=f"lanes{min(ms, key=ms.get)}",
-            picked=f"lanes{P2K.lanes_for(n)}")
-    say("sweep", lane_crossover=",".join(f"lanes{g}:N>={f}" for f, g in
-                                         P2K.LANE_CROSSOVER),
-        below=f"lanes{P2K.LANES[-1]}")
-    for m in tree_sizes:
-        level = rand_words(rng, (m, P2.DIGEST_WORDS), dev)
-
-        def loop():
-            cur = level
-            while cur.shape[0] > 1:
-                cur = P2K.hash_rows(cur.view(-1, 2 * P2.DIGEST_WORDS))
-
-        say("sweep", tree_nodes=m, levels=m.bit_length() - 1,
-            tree_top_ms=f"{device_ms(lambda: P2K.hash_tree(level), 20):.4f}",
-            level_loop_ms=f"{device_ms(loop, 20):.4f}",
-            tree_top_host_ms=f"{host_ms(lambda: P2K.hash_tree(level), 20):.4f}",
-            level_loop_host_ms=f"{host_ms(loop, 20):.4f}")
-    say("sweep", tree_top=P2K.TREE_TOP)
 
     # a whole commit of the main path's data group, and its parts
     from boundless_tpu_torch.core import merkle
@@ -763,16 +773,25 @@ def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
         while cur.shape[0] > P2K.TREE_TOP:
             cur = P2K.hash_rows(cur.view(-1, 2 * P2.DIGEST_WORDS))
 
+    def pair_bound(hashes: int):  # `hashes` 2-to-1 hashes, 16 words in
+        return bound_ms(4 * hashes * (2 + 1) * P2.DIGEST_WORDS,
+                        hashes * P2_MULS, hashes * (P2_ADDS + 16),
+                        sm_clocks_per_s)
+
     P2K.LAUNCHES = 0
     merkle.commit(leaf)
+    levels_bms, levels_by = pair_bound(sum(t.shape[0] for t in tops[1:]))
+    top_bms, top_by = pair_bound(tops[-1].shape[0] - 1)
     say("kernel", kernel="poseidon2_sponge",
         commit=f"{LEAF_SHAPE[0]}x{LEAF_SHAPE[1]}", launches=P2K.LAUNCHES,
         commit_ms=f"{cuda_ms(lambda: merkle.commit(leaf), 5):.4f}",
         leaves_ms=f"{cuda_ms(lambda: P2K.hash_rows(leaf), 5):.4f}",
         levels_to_tree_top_ms=f"{device_ms(levels_above, 10):.4f}",
         level_launches=len(tops) - 1,
+        levels_bound_ms=f"{levels_bms:.6g}", levels_bound_by=levels_by,
         tree_top_ms=f"{device_ms(lambda: P2K.hash_tree(tops[-1]), 20):.4f}",
-        tree_top_levels=tops[-1].shape[0].bit_length() - 1)
+        tree_top_levels=tops[-1].shape[0].bit_length() - 1,
+        tree_top_bound_ms=f"{top_bms:.6g}", tree_top_bound_by=top_by)
     return stats
 
 
@@ -849,7 +868,8 @@ def phase_kernel_ntt(dev, sm_clocks_per_s):
         lde_shape=f"{n // INV_RATE_GRID}x{c}->{n}", lde_ms=f"{lde_ms:.4f}",
         lde_plain_ms=f"{lde_plain_ms:.4f}")
     return dict(max_abs_err=check.max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, shape=f"{n}x{c}",
+                plain_shape=f"{n}x{c}")
 
 
 class CaptureCons:
@@ -924,12 +944,24 @@ def counts():
             "cons_eval": CK.LAUNCHES}
 
 
+def all_counts():
+    """Launches of all five kernels (`counts()` and the wrap's two)."""
+    from boundless_tpu_torch.kernels import msm as MK
+    from boundless_tpu_torch.kernels import poseidon254 as P254K
+
+    return {**counts(), "p254_sponge": P254K.LAUNCHES,
+            "bn254_msm": MK.LAUNCHES}
+
+
 def zero_counts():
     from boundless_tpu_torch.kernels import cons as CK
+    from boundless_tpu_torch.kernels import msm as MK
     from boundless_tpu_torch.kernels import ntt as NK
     from boundless_tpu_torch.kernels import poseidon2 as P2K
+    from boundless_tpu_torch.kernels import poseidon254 as P254K
 
     P2K.LAUNCHES = NK.LAUNCHES = CK.LAUNCHES = 0
+    P254K.LAUNCHES = MK.LAUNCHES = 0
     for layout in P2K.LAUNCHES_BY_LAYOUT:
         P2K.LAUNCHES_BY_LAYOUT[layout] = 0
 
@@ -952,12 +984,18 @@ class SpongeProfile:
     kernel and not the card's wait for the host (a proof is host-bound).
     The spins add device time to the profiled run, not to the sums. Works
     on a tree whose wrapper launches through `_sponge` (and `hash_tree`
-    where it has one)."""
+    where it has one).
+
+    With sponge="p254" it times the p254 sponge's launches instead
+    (`kernels/poseidon254._launch`, layout "p254"): `leaves` and
+    `tree_levels` of a `Poseidon254Suite.commit`, `verifier` of its
+    `verify_rows`."""
 
     SPIN_CLOCKS = 200_000
 
-    def __init__(self, kind=None):
+    def __init__(self, kind=None, sponge="poseidon2"):
         self.kind = kind
+        self.sponge = sponge
         self.records = []  # (kind, layout, start event, end event)
 
     def _kind_now(self):
@@ -972,8 +1010,9 @@ class SpongeProfile:
         return "leaves" if span[1] == 1 else "tree_levels"
 
     def __enter__(self):
-        from boundless_tpu_torch.core import merkle, transcript
+        from boundless_tpu_torch.core import merkle, suites, transcript
         from boundless_tpu_torch.kernels import poseidon2 as P2K
+        from boundless_tpu_torch.kernels import poseidon254 as P254K
 
         self._spans, self._patched = [], []
         spin = spin_lib()
@@ -1023,6 +1062,12 @@ class SpongeProfile:
                     if hasattr(P2K, "lanes_for") else 1
             return f"lanes{lanes}"
 
+        if self.sponge == "p254":
+            patch(suites.Poseidon254Suite, "commit", spanned("commit"))
+            patch(suites.Poseidon254Suite, "verify_rows",
+                  spanned("verifier"))
+            patch(P254K, "_launch", timed(lambda args, kwargs: "p254"))
+            return self
         patch(merkle, "commit", spanned("commit"))
         patch(merkle, "verify_rows", spanned("verifier"))
         patch(transcript.Transcript, "_permute", spanned("permute"))
@@ -1051,14 +1096,15 @@ class SpongeProfile:
         return out
 
 
-def profile_sponge(phase: str, what: str, make, kind=None):
+def profile_sponge(phase: str, what: str, make, kind=None,
+                   sponge="poseidon2"):
     """The sponge's device time by kind in one more run of `make` (a warm
     proof or verifier), apart from the timed and counted runs, whose walls
     must not hold SpongeProfile's spins and events."""
-    with SpongeProfile(kind) as sponge:
+    with SpongeProfile(kind, sponge) as prof:
         out = make()
     say(phase, stage=what, profiled="a separate warm run",
-        **sponge_fields(sponge.summary()))
+        **sponge_fields(prof.summary()))
     return out
 
 
@@ -1242,8 +1288,9 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
         public_pack_ms=f"{pack_ms:.4f}", weights_ms=f"{weights_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
         blocks_per_sm=CK.blocks_per_sm(air), warps_per_block=CK.WARPS)
+    grid = f"{m}-row grid, {air.name}"
     cons = dict(max_abs_err=cons_check.max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, shape=grid, plain_shape=grid)
     return launches, cons
 
 
@@ -1731,6 +1778,479 @@ def phase_coproc(dev, cons_check):
     return coproc_launches
 
 
+# ---------------------------------------------------------------------------
+# The STARK-to-Groth16 wrap: the p254 sponge, the MSM, the CRS prover and
+# the CI wrap chain
+# ---------------------------------------------------------------------------
+
+P254_CHECK_N = 1 << 10
+P254_CHECK_COLS = (48, 64, 24, 16)  # the identity proof's groups: ctrl,
+# data, accum, check
+P254_TIME_SHAPE = (1 << 16, 64)  # the identity data group at the CI params
+# At the wrap's own shapes (2^16 rows, the four widths, and a 2^16-leaf
+# commit) the plain version costs ~1 ms a permutation, so those launches
+# are held to it on a sample: P254_SAMPLE spread rows or nodes plus the
+# last P254_TAIL (the kernel's last thread block), and whole levels from
+# P254_WHOLE nodes down.
+P254_SAMPLE, P254_TAIL, P254_WHOLE = 128, 128, 1 << 10
+MSM_PLAIN_N = 1 << 10
+MSM_HOST_N = 1 << 12
+MSM_TIME_N = (1 << 16, 1 << 18, 1 << 20)
+GROTH16_DEPTH = 2  # Merkle path of Poseidon-BN254 pair gadgets
+# 32-bit multiply-adds of one 8 x 32-bit CIOS Montgomery product
+# (csrc/bn254_field.cuh): 64 + 64 + 8 32x32->64 products, each the low and
+# the high half of a product (two FMA-pipe issues, the least Hopper needs
+# for a 64-bit product: it has no 64-bit multiplier). Carries and
+# reductions (ALU) are not counted, so the bound is low.
+BN_MUL_FMA = 2 * (64 + 64 + 8)
+# Montgomery products of one Poseidon-BN254 permutation: 8 full rounds of 3
+# S-boxes (3 products each) and 57 partial rounds of one, 9 MDS products a
+# round (csrc/poseidon254.cu).
+P254_PERM_MULS = 8 * (9 + 9) + 57 * (3 + 9)
+# Montgomery products of a mixed (Jacobian + affine), a Jacobian addition
+# and a doubling in csrc/msm.cu
+MSM_MADD_MULS, MSM_ADD_MULS, MSM_DBL_MULS = 11, 16, 7
+
+
+def bn_bound_ms(nbytes: float, products: float, sm_clocks_per_s: float):
+    """Bound of `products` BN254 Montgomery products over `nbytes`."""
+    return bound_ms(nbytes, 0, 0, sm_clocks_per_s,
+                    extra=(products * BN_MUL_FMA, 0, 0))
+
+
+def p254_row_products(c: int) -> int:
+    """Montgomery products of one p254 row hash of `c` words: the
+    permutations, each felt's conversion into Montgomery form and the
+    digest's out of it."""
+    felts = max(1, -(-c // 8))
+    perms = -(-felts // 2)
+    return perms * (P254_PERM_MULS + 2) + 1
+
+
+def p254_sample(rng, n: int):
+    """Row or node indices to hold a 2^16-size launch to the plain version:
+    all of them from P254_WHOLE down, else a spread sample and the tail."""
+    if n <= P254_WHOLE:
+        return np.arange(n)
+    spread = rng.choice(n - P254_TAIL, P254_SAMPLE, replace=False)
+    return np.union1d(spread, np.arange(n - P254_TAIL, n))
+
+
+def check_p254_sampled(check, rng, fn, inp, got, what) -> int:
+    """Hold the rows `p254_sample` picks of `got` = fn(inp) on the card to
+    fn on those rows of `inp` on the CPU; returns the rows checked."""
+    idx = torch.from_numpy(p254_sample(rng, inp.shape[0])).to(inp.device)
+    check(got[idx], fn(inp[idx].cpu()).to(inp.device), what)
+    return int(idx.shape[0])
+
+
+def phase_kernel_p254(dev, sm_clocks_per_s):
+    """The p254 sponge against its plain version (the Python-int hash) at
+    the identity proof's group widths: whole at 2^10 rows, sampled at the
+    wrap's 2^16 rows and on every level of a 2^16-leaf commit; timed."""
+    from boundless_tpu_torch.core import suites
+    from boundless_tpu_torch.kernels import poseidon254 as P254K
+
+    rng = np.random.default_rng(SEED + 7)
+    check = Checker()
+    for c in P254_CHECK_COLS:
+        x = rand_words(rng, (P254_CHECK_N, c), dev)
+        got = P254K.hash_rows(x)
+        t0 = time.perf_counter()
+        want = P254K.hash_rows(x.cpu())
+        plain_s = time.perf_counter() - t0
+        check(got, want.to(dev), f"p254 rows {P254_CHECK_N}x{c}")
+        if c == 64:
+            plain_ms, x64 = plain_s * 1e3, x
+    pairs = torch.cat([got, P254K.hash_rows(x64)], 1)  # 2^10 pairs
+    check(P254K.hash_level(pairs), P254K.hash_level(pairs.cpu()).to(dev),
+          f"p254 pairs {P254_CHECK_N}")
+    tree = suites.get("poseidon254").commit(x64)
+    want = [P254K.hash_rows(x64.cpu())]
+    while want[-1].shape[0] > 1:
+        want.append(P254K.hash_level(want[-1].view(-1, 16)))
+    for d, (g, w) in enumerate(zip(tree.levels, want)):
+        check(g, w.to(dev), f"p254 commit level {d}")
+    n, c = P254_TIME_SHAPE
+    sampled = {}
+    for cols in P254_CHECK_COLS:  # the wrap's launches at 2^16 rows
+        if cols != c:
+            y = rand_words(rng, (n, cols), dev)
+            sampled[f"{n}x{cols}"] = check_p254_sampled(
+                check, rng, P254K.hash_rows, y, P254K.hash_rows(y),
+                f"p254 rows {n}x{cols}")
+            del y
+    x = rand_words(rng, (n, c), dev)
+    ms = cuda_ms(lambda: P254K.hash_rows(x), 3)
+    bms, by = bn_bound_ms(4 * n * c + 32 * n, n * p254_row_products(c),
+                          sm_clocks_per_s)
+    leaves = P254K.hash_rows(x)  # the timed launch once more
+    sampled[f"{n}x{c}"] = check_p254_sampled(
+        check, rng, P254K.hash_rows, x, leaves, f"p254 rows {n}x{c}")
+    tree = suites.get("poseidon254").commit(x)
+    check(tree.levels[0], leaves, f"p254 commit {n} leaves")
+    per_level = []
+    for d in range(1, len(tree.levels)):
+        below = tree.levels[d - 1].view(-1, 16)
+        per_level.append(check_p254_sampled(
+            check, rng, P254K.hash_level, below, tree.levels[d],
+            f"p254 commit {n} level {d}"))
+    levels_ms = cuda_ms(lambda: _p254_levels(leaves), 3)
+    tree_ms = cuda_ms(lambda: suites.get("poseidon254").commit(x), 2)
+    tree_bms, tree_by = bn_bound_ms(
+        4 * n * c + 32 * (2 * n - 1),
+        n * p254_row_products(c) + (n - 1) * (P254_PERM_MULS + 3),
+        sm_clocks_per_s)
+    say("kernel", kernel="p254_sponge", checked=check.checked,
+        check_rows=P254_CHECK_N, check_cols=",".join(map(str, P254_CHECK_COLS)),
+        sampled_rows=json.dumps(sampled).replace(" ", ""),
+        commit_levels_checked=len(per_level),
+        commit_nodes_checked_by_level=",".join(map(str, per_level)),
+        tolerance=0, max_abs_err=check.max_err, shape=f"{n}x{c}",
+        kernel_ms=f"{ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+        tree_levels_ms=f"{levels_ms:.4f}", commit_ms=f"{tree_ms:.4f}",
+        commit_bound_ms=f"{tree_bms:.4f}", commit_bound_by=tree_by,
+        plain_ms_1024x64=f"{plain_ms:.4f}")
+    return dict(max_abs_err=check.max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, shape=f"{n}x{c}",
+                plain_shape=f"{P254_CHECK_N}x64")
+
+
+def _p254_levels(leaves):
+    from boundless_tpu_torch.kernels import poseidon254 as P254K
+
+    cur = leaves
+    while cur.shape[0] > 1:
+        cur = P254K.hash_level(cur.view(-1, 16))
+    return cur
+
+
+def multiples_of_g(n: int):
+    """Affine (x, y) ints of i * G, i = 1 .. n (host): the first 2B by
+    repeated addition, then blocks of B affine additions of j * G to
+    k * B * G (k >= 2, so no addition is a doubling), one inversion a
+    block."""
+    from boundless_tpu_torch.groth16 import msm_device as MD
+    from boundless_tpu_torch.groth16.bn254 import G1, P as Q
+
+    b = 1024
+    g = G1.generator()
+    first = [g]
+    for _ in range(2 * b - 1):
+        first.append(first[-1].add(g))
+    out = MD.affine_batch(first)
+    q = out[:b]
+    cx, cy = out[-1]
+    while len(out) < n:
+        dx = [(qx - cx) % Q for qx, _ in q]
+        pref, acc = [], 1
+        for d in dx:
+            pref.append(acc)
+            acc = acc * d % Q
+        inv = pow(acc, Q - 2, Q)
+        block = [None] * b
+        for j in range(b - 1, -1, -1):
+            dinv = pref[j] * inv % Q
+            inv = inv * dx[j] % Q
+            qx, qy = q[j]
+            lam = (qy - cy) * dinv % Q
+            x3 = (lam * lam - cx - qx) % Q
+            block[j] = (x3, (lam * (cx - x3) - cy) % Q)
+        out.extend(block)
+        cx, cy = block[-1]
+    return out[:n]
+
+
+def affine_words(points) -> np.ndarray:
+    """Affine (x, y) ints -> (n, 16) uint32 Montgomery words."""
+    from boundless_tpu_torch.groth16 import limbs as LB
+    from boundless_tpu_torch.groth16.bn254 import P as Q
+
+    blob = b"".join((x * LB.R_MOD_N % Q).to_bytes(32, "little")
+                    + (y * LB.R_MOD_N % Q).to_bytes(32, "little")
+                    for x, y in points)
+    return np.frombuffer(blob, dtype=np.uint32).reshape(-1, 16)
+
+
+def msm_products(pr) -> int:
+    """Montgomery products the kernel does on these inputs: a mixed
+    addition for each entry after a chunk's first, a Jacobian addition
+    for each chunk after a bucket's first, the windows' running sums
+    (2 x 255 additions each) and the 31 joins (8 doublings, 1 addition)."""
+    entries = pr.idx.shape[0]
+    chunks = pr.chunk_start.shape[0]
+    buckets = int((pr.bucket_chunks > 0).sum())
+    return ((entries - chunks) * MSM_MADD_MULS
+            + (chunks - buckets) * MSM_ADD_MULS
+            + 32 * 2 * 255 * MSM_ADD_MULS
+            + 31 * (8 * MSM_DBL_MULS + MSM_ADD_MULS))
+
+
+def phase_kernel_msm(dev, sm_clocks_per_s):
+    """The CUDA MSM against its plain version, the host Pippenger and the
+    i*G identity, and timed."""
+    from boundless_tpu_torch.groth16 import limbs as LB
+    from boundless_tpu_torch.groth16 import msm as HM
+    from boundless_tpu_torch.groth16 import msm_device as MD
+    from boundless_tpu_torch.groth16.bn254 import G1, R
+    from boundless_tpu_torch.kernels import msm as MK
+
+    rng = np.random.default_rng(SEED + 8)
+    t0 = time.perf_counter()
+    aff = multiples_of_g(max(MSM_TIME_N))
+    gen_s = time.perf_counter() - t0
+    words = torch.from_numpy(affine_words(aff).view(np.int32).copy())
+    check = Checker()
+
+    def affine(w):  # (24,) Jacobian words -> (16,) affine limbs
+        p = MD.point_from_words(w.cpu().numpy()).to_affine()
+        return np.zeros(16, np.int64) if p is None else np.concatenate(
+            [LB.to_limbs(p[0]), LB.to_limbs(p[1])]).astype(np.int64)
+
+    def scalars_of(n, edge):
+        out = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+        if edge:  # zeros, one, repeated digits (tests/test_msm_tpu.py:55-70)
+            out[3] = 0
+            out[11] = 1
+            out[12] = out[13] = out[14] = 5
+            out[20] = out[21]
+        return out
+
+    # the plain torch version at 2^10 (edge cases: an infinity point, a
+    # point and its negation, repeated points and scalars)
+    n = MSM_PLAIN_N
+    pts = words[:n].clone()
+    pts[7] = 0  # infinity
+    neg = MD.points_words([G1.from_affine(aff[8]).neg()])
+    pts[9] = torch.from_numpy(neg.view(np.int32).copy())[0]
+    pts[30] = pts[31]
+    sc = scalars_of(n, True)
+    sc[30] = sc[31]
+    sc[9] = sc[8]
+    pts = pts.to(dev)
+    pr = MD.prep(sc, dev)
+    got = MK.pippenger(pts, pr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = MD.plain_pippenger(pts, pr)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int(np.abs(affine(got) - affine(plain)).max())
+    check.max_err = max(check.max_err, err)
+    if err:
+        raise AssertionError("MSM kernel differs from its plain version")
+    # the host Pippenger at 2^12, with random points and the edge cases
+    n = MSM_HOST_N
+    g = G1.generator()
+    hp = [g.mul(int(k)) for k in rng.integers(1, 1 << 40, size=n)]
+    hp[20] = G1.infinity()
+    hp[40] = hp[41].neg()
+    hp[50] = hp[51]
+    hs = scalars_of(n, True)
+    hs[40], hs[50] = hs[41], hs[51]
+    got = MD.msm(hp, hs, dev)
+    if not got.eq(HM.msm_pippenger(hp, hs)):
+        raise AssertionError("MSM kernel differs from the host Pippenger")
+    check.checked += 2
+    # i*G at large n: sum_i s_i (i G) = (sum_i i s_i mod r) G
+    times = {}
+    for n in MSM_TIME_N:
+        sc = scalars_of(n, False)
+        pts = words[:n].to(dev)
+        pr = MD.prep(sc, dev)
+        out = MK.pippenger(pts, pr)
+        want = g.mul(sum((i + 1) * s for i, s in enumerate(sc)) % R)
+        if not MD.point_from_words(out.cpu().numpy()).eq(want):
+            raise AssertionError(f"MSM kernel: the i*G check fails at n={n}")
+        check.checked += 1
+        ms = cuda_ms(lambda: MK.pippenger(pts, pr), 3)
+        bms, by = bn_bound_ms(64 * n + 32 * n + 96, msm_products(pr),
+                              sm_clocks_per_s)
+        times[n] = (ms, bms, by)
+        say("kernel", kernel="bn254_msm", n=n, entries=pr.idx.shape[0],
+            chunks=pr.chunk_start.shape[0], i_times_g="equal",
+            kernel_ms=f"{ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+    n = max(MSM_TIME_N)
+    ms, bms, by = times[n]
+    say("kernel", kernel="bn254_msm", checked=check.checked, tolerance=0,
+        max_abs_err=check.max_err, plain_n=MSM_PLAIN_N,
+        plain_ms=f"{plain_ms:.4f}", host_pippenger_n=MSM_HOST_N,
+        host_points_s=f"{gen_s:.3f}")
+    return dict(max_abs_err=check.max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, shape=f"{n} points",
+                plain_shape=f"{MSM_PLAIN_N} points")
+
+
+def merkle_circuit(depth: int, rng):
+    """An R1CS proving a Merkle path of Poseidon-BN254 pair hashes
+    (`r1cs.poseidon_hash_pair`, the wrap circuit's building block) to a
+    public root: leaf, siblings and direction bits are witness."""
+    from boundless_tpu_torch.core import poseidon_bn254 as P254
+    from boundless_tpu_torch.groth16 import circuit, r1cs
+
+    leaf = int.from_bytes(rng.bytes(32), "little") % P254.FR
+    sibs = [int.from_bytes(rng.bytes(32), "little") % P254.FR
+            for _ in range(depth)]
+    bits = [int(b) for b in rng.integers(0, 2, size=depth)]
+    cur = leaf
+    for s, b in zip(sibs, bits):
+        cur = P254.hash_pair(s, cur) if b else P254.hash_pair(cur, s)
+    bld = r1cs.Builder(concrete=True)
+    root = bld.pub_var(cur)
+    bld.freeze_pub()
+    node = bld.lc(bld.wit(leaf))
+    for s, b in zip(sibs, bits):
+        sib = bld.lc(bld.wit(s))
+        bit = bld.bit(b)
+        left = circuit.select_felt(bld, bit, sib, node)
+        right = circuit.select_felt(bld, bit, node, sib)
+        node = r1cs.poseidon_hash_pair(bld, left, right)
+    bld.enforce_zero(r1cs._lc_add(node, r1cs._lc_scale(bld.lc(root),
+                                                       r1cs.FR - 1)))
+    return bld, cur
+
+
+def phase_groth16(dev):
+    """The CRS prover's path on the card: setup_sparse + prove_sparse,
+    whose G1 MSMs run through the CUDA Pippenger."""
+    from boundless_tpu_torch.groth16 import protocol, qap
+
+    rng = np.random.default_rng(SEED + 9)
+    bld, root = merkle_circuit(GROTH16_DEPTH, rng)
+    sys_ = bld.to_sparse()
+    wit = bld.witness()
+    if not sys_.is_satisfied(wit):
+        raise AssertionError("the Merkle-path circuit is not satisfied")
+    t0 = time.perf_counter()
+    pk, vk = qap.setup_sparse(sys_)
+    t_setup = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    proof = qap.prove_sparse(sys_, pk, wit, device=dev)
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    launches = all_counts()
+    if launches["bn254_msm"] <= 0:
+        raise AssertionError("prove_sparse launched no MSM kernel")
+    t0 = time.perf_counter()
+    ok = protocol.verify(vk, proof, [root])
+    t_verify = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("the CRS prover's proof does not verify")
+    if protocol.verify(vk, proof, [(root + 1) % protocol.R]):
+        raise AssertionError("verify accepted a tampered public input")
+    say("groth16", circuit=f"merkle_path_depth{GROTH16_DEPTH}",
+        rows=len(sys_.rows), variables=sys_.n_vars,
+        msm_points=f"{len(pk.a_g1)},{len(pk.b_g1)},{len(pk.l_g1)},"
+        f"{len(pk.h_g1)}", setup_sparse_s=f"{t_setup:.3f}",
+        prove_sparse_s=f"{t_prove:.3f}", verify_s=f"{t_verify:.3f}",
+        verify="accepted", tampered_public="rejected",
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+def phase_wrap(dev):
+    """The JAX CI wrap chain (tests/test_groth16_wrap.py:20-44) on the
+    card: echo session -> lift -> finalize -> identity_p254 -> R1CS wrap
+    circuit -> Groth16 -> pairing-only verify; the EVM seal round-trip;
+    tampers refused."""
+    from boundless_tpu_torch.groth16 import evm, wrap
+    from boundless_tpu_torch.kernels import poseidon254 as P254K
+    from boundless_tpu_torch.prover import stark
+    from boundless_tpu_torch.recursion import identity, succinct
+    from boundless_tpu_torch.zkvm import guests, paging, prove
+    from boundless_tpu_torch.zkvm.executor import Executor
+
+    ps = stark.ProofSystem(queries=2, fri_min_degree=16, commit_expand=2)
+    params = succinct.SuccinctParams(seg_po2=6, seg_ps=ps, rec_po2=17,
+                                     rec_ps=ps, variants=("rv32im", "rv32i"))
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    image = guests.echo()
+    res = Executor(image, guests.words([1, 7]), segment_po2=6).run()
+    if len(res.segments) != 1:
+        raise AssertionError(f"{len(res.segments)} segments, expected 1")
+    t0 = time.perf_counter()
+    system = succinct.SuccinctSystem(params, device=dev)
+    t_system = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sr = prove.prove_segment(image, res.segments[0], ps, device=dev)
+    root = system.lift(sr, pre_mem=res.segments[0].pre_mem)
+    torch.cuda.synchronize()
+    t_lift = time.perf_counter() - t0
+    if not system.verify(root):
+        raise AssertionError("the lift receipt does not verify")
+    words = [int.from_bytes(res.journal[i: i + 4], "little")
+             for i in range(0, len(res.journal), 4)]
+    session = succinct.finalize_session(root, words, image.entry,
+                                        paging.image_root(image))
+    t0 = time.perf_counter()
+    p254 = identity.get_p254(system)
+    t_p254 = time.perf_counter() - t0
+    before = P254K.LAUNCHES  # the control ID's launches stay counted
+    receipt = wrap.compress(session, kind="groth16", system=system)
+    torch.cuda.synchronize()
+    shrink_launches = P254K.LAUNCHES - before
+    sec = dict(p254.seconds)
+    launches = all_counts()
+    if launches["p254_sponge"] <= 0:
+        raise AssertionError("identity_p254 launched no p254 sponge kernel")
+    t0 = time.perf_counter()
+    ok = wrap.verify(receipt, system=system)
+    t_verify = time.perf_counter() - t0
+    if not ok or receipt.dev_mode:
+        raise AssertionError("wrap.verify rejected the Groth16 receipt")
+    if not wrap.verify(receipt, expected_image_id=receipt.image_id,
+                       system=system):
+        raise AssertionError("wrap.verify rejected the expected image id")
+    bad = dataclasses.replace(receipt, journal=receipt.journal[:-4]
+                              + b"\x01\x02\x03\x04")
+    if wrap.verify(bad, system=system):
+        raise AssertionError("wrap.verify accepted a tampered journal")
+    seal = receipt.inner
+    bad_claim = dataclasses.replace(seal.claim, post_journal=tuple([1] * 8))
+    if wrap.verify(dataclasses.replace(receipt, inner=dataclasses.replace(
+            seal, claim=bad_claim)), system=system):
+        raise AssertionError("wrap.verify accepted a tampered claim")
+    calldata = evm.encode_seal(receipt)
+    dec = evm.decode_seal(calldata)
+    if not evm.verify_decoded(dec, seal.vk):
+        raise AssertionError("the decoded EVM seal does not verify")
+    wk = wrap.wrap_key_for(p254)
+    # the sponge's device time by kind in one more warm shrink and verify
+    shr = profile_sponge("wrap", "identity_p254 shrink",
+                         lambda: p254.shrink(session.root), sponge="p254")
+    profile_sponge("wrap", "identity_p254 verify", lambda: p254.verify(shr),
+                   sponge="p254")
+    say("wrap", stage="setup", recursion_system_s=f"{t_system:.3f}",
+        segment_and_lift_s=f"{t_lift:.3f}", identity_system_s=f"{t_p254:.3f}",
+        identity_program_build_s=f"{sec['program_build']:.3f}",
+        p254_control_id_s=f"{sec['control_id']:.3f}",
+        identity_po2=p254.po2,
+        control_id=",".join(str(x) for x in p254.control_id))
+    say("wrap", stage="identity_p254",
+        shrink_s=f"{sec['witness'] + sec['native_eval'] + sec['prove']:.3f}",
+        witness_s=f"{sec['witness']:.3f}",
+        native_eval_s=f"{sec['native_eval']:.3f}",
+        prove_s=f"{sec['prove']:.3f}", verify_s=f"{sec['verify']:.3f}",
+        p254_sponge_launches_shrink_and_verify=shrink_launches)
+    say("wrap", stage="groth16", prover_mode=wk.mode, r1cs_rows=wk.n_rows,
+        r1cs_variables=wk.n_vars,
+        r1cs_layout_s=f"{wk.seconds['r1cs_layout']:.3f}",
+        setup_s=f"{wk.seconds['setup']:.3f}",
+        concrete_build_s=f"{wk.seconds['concrete_build']:.3f}",
+        prove_s=f"{wk.seconds['prove']:.3f}", verify_s=f"{t_verify:.3f}",
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    say("wrap", stage="receipt", selector=receipt.selector,
+        dev_mode=receipt.dev_mode, verify="accepted",
+        tampered_journal="rejected", tampered_claim="rejected",
+        evm_seal_bytes=len(calldata), evm_round_trip="verified",
+        wall_s=f"{time.perf_counter() - t_all:.3f}",
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
 KERNELS = (
     ("poseidon2_sponge", "boundless_tpu_torch/csrc/poseidon2.cu",
      "boundless_tpu/core/poseidon2_pallas.py:358"),
@@ -1738,7 +2258,20 @@ KERNELS = (
      "boundless_tpu/core/ntt_pallas.py:65"),
     ("cons_eval", "boundless_tpu_torch/kernels/cons.py",
      "boundless_tpu/air/pallas_eval.py:380"),
+    ("p254_sponge", "boundless_tpu_torch/csrc/poseidon254.cu",
+     "boundless_tpu/core/poseidon_bn254.py:189 hash_rows_np and :198 "
+     "hash_pairs_np (host)"),
+    ("bn254_msm", "boundless_tpu_torch/csrc/msm.cu",
+     "boundless_tpu/groth16/msm_tpu.py:237"),
 )
+
+
+def timed_phase(name: str, fn):
+    """Run one phase and print its host seconds."""
+    t0 = time.perf_counter()
+    out = fn()
+    say(name, phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
 
 
 def main():
@@ -1760,11 +2293,25 @@ def main():
     rec_launches = phase_recursion(dev)
     phase_coproc_kernels(dev, sm_clocks_per_s, lat)
     coproc_launches = phase_coproc(dev, cons_check)
+    stats["p254_sponge"] = timed_phase("p254", lambda: phase_kernel_p254(
+        dev, sm_clocks_per_s))
+    stats["bn254_msm"] = timed_phase("msm", lambda: phase_kernel_msm(
+        dev, sm_clocks_per_s))
+    g16_launches = timed_phase("groth16", lambda: phase_groth16(dev))
+    wrap_launches = timed_phase("wrap", lambda: phase_wrap(dev))
+    # each kernel's launches on its own path: the main path for the
+    # segment prover's three, [wrap] for the p254 sponge, [groth16] for
+    # the MSM (the CI wrap takes the trapdoor prover)
+    launches["p254_sponge"] = wrap_launches["p254_sponge"]
+    launches["bn254_msm"] = g16_launches["bn254_msm"]
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "launches_recursion": rec_launches[name],
-         "launches_coproc": coproc_launches[name],
+         "launches": launches[name],
+         "launches_recursion": rec_launches.get(name, 0),
+         "launches_coproc": coproc_launches.get(name, 0),
+         "launches_groth16": g16_launches[name],
+         "launches_wrap": wrap_launches[name],
          **stats[name], "library_ms": None}
         for name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ A subprocess blocks `import jax` and `import boundless_tpu`
 `boundless_tpu_torch` and `chip_smoke.py`, and runs executor -> witness ->
 prove_segment -> verify_segment for the echo guest at po2 8 on the CPU
 (the native C++ witness included), a dev-mode lift of that receipt, a
-dev-mode keccak batch lifted into the coproc lattice, and a
+dev-mode keccak batch lifted into the coproc lattice, a
 RecursionAir proof of a small program (the native `rec_eval` trace) with
-its verification; no `boundless_tpu` module may load. The
+its verification, and the wrap's modules: a p254-suite commit, a BLAKE3
+digest, a Groth16 proof and its pairing check, and the MSM's plain
+version; no `boundless_tpu` module may load. The
 sources of the port and of `chip_smoke.py` must not import either package.
 """
 
@@ -55,6 +57,24 @@ pub = rair.pub_array([9], "cpu")
 rec = stark.prove(rair.AIR, data, pub, 8, prove.TEST_PS, ctrl)
 root = stark.control_root_of(rair.AIR, 8, ctrl, prove.TEST_PS)
 assert stark.verify(rair.AIR, rec, pub, 8, root, prove.TEST_PS)
+for must in ("groth16.bn254", "groth16.circuit", "groth16.crs", "groth16.evm",
+             "groth16.limbs", "groth16.msm", "groth16.msm_device",
+             "groth16.pairing", "groth16.protocol", "groth16.qap",
+             "groth16.r1cs", "groth16.wrap", "recursion.identity",
+             "recursion.receipt", "core.blake3", "core.poseidon_bn254",
+             "kernels.poseidon254", "kernels.msm"):
+    assert "boundless_tpu_torch." + must in names, must
+from boundless_tpu_torch.core import blake3, suites
+from boundless_tpu_torch.groth16 import msm_device, protocol as GP
+from boundless_tpu_torch.groth16.bn254 import G1
+tree = suites.get("poseidon254").commit(ctrl[:8, :4])
+assert tree.root.shape == (8,) and len(tree.levels) == 4
+assert len(blake3.digest(b"abc")) == 32
+mc = GP.mul_circuit()
+pk, vk = GP.setup(mc)
+assert GP.verify(vk, GP.prove(mc, pk, [1, 6, 2, 3, 6]), [6])
+g = G1.generator()
+assert msm_device.msm([g, g.double()], [3, 5], "cpu").eq(g.mul(13))
 loaded = [m for m in sys.modules if m.startswith(("jax", "boundless_tpu"))
           and not m.startswith("boundless_tpu_torch")]
 assert sorted(loaded) == ["boundless_tpu", "jax"], loaded  # placeholders

@@ -1,6 +1,8 @@
-"""Times the Poseidon2 sponge's internal rounds against the classic form.
+"""Times the Poseidon2 sponge's internal rounds against the classic form,
+and (`--sweep`) the sweeps that chose its layout crossovers and tree top.
 
     python3 tools/sponge_variants.py
+    python3 tools/sponge_variants.py --sweep
 
 Builds copies of `csrc/poseidon2.cu` with one choice undone, each through
 `kernels/build.load_source` into `build/`:
@@ -19,6 +21,12 @@ for short launches) in every layout at a one-row chain of 25 permutations
 (2^11 x 4048) and, at one thread a hash, the main path's and the
 recursion's leaves (2^18 x 392, 2^21 x 64). Prints the card's name and
 power limit first.
+
+`--sweep` times the shipped sponge instead: every layout at N = 2^10 ..
+2^17 rows of 16 and 392 columns (the fastest layout against
+`kernels/poseidon2.lanes_for`, which `LANE_CROSSOVER` sets), and the
+one-block tree top against the level loop at every level size up to
+`tree_max()`, device and host ms (which `TREE_TOP` sets).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import chip_smoke as C  # noqa: E402
 from boundless_tpu_torch.core import poseidon2 as P2  # noqa: E402
 from boundless_tpu_torch.kernels import build  # noqa: E402
 
+SWEEP = tuple((1 << k, c) for c in (16, 392) for k in range(10, 18))
 SHAPES = ((1, 392, (1, 2, 4, 8)), (1, 0, (1, 2, 4, 8)),
           (1 << 11, 4048, (2, 4, 8)), (1 << 18, 392, (1,)),
           (1 << 21, 64, (1,)))
@@ -136,5 +145,43 @@ def main():
         del x
 
 
+def sweep():
+    """The layout crossovers and the tree top's size, re-measured."""
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+    C.phase_device()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rng = np.random.default_rng(C.SEED)
+    for n, c in SWEEP:
+        x = C.rand_words(rng, (n, c), dev)
+        ms = {g: C.sponge_ms(lambda g=g: C.hash_lanes(x, g), n, c)
+              for g in P2K.LANES}
+        C.say("sweep", shape=f"{n}x{c}",
+              **{f"lanes{g}_ms": f"{v:.4f}" for g, v in ms.items()},
+              fastest=f"lanes{min(ms, key=ms.get)}",
+              picked=f"lanes{P2K.lanes_for(n)}")
+    C.say("sweep", lane_crossover=",".join(f"lanes{g}:N>={f}" for f, g in
+                                           P2K.LANE_CROSSOVER),
+          below=f"lanes{P2K.LANES[-1]}")
+    for m in [1 << k for k in range(1, P2K.tree_max().bit_length())]:
+        level = C.rand_words(rng, (m, P2.DIGEST_WORDS), dev)
+
+        def loop():
+            cur = level
+            while cur.shape[0] > 1:
+                cur = P2K.hash_rows(cur.view(-1, 2 * P2.DIGEST_WORDS))
+
+        C.say("sweep", tree_nodes=m, levels=m.bit_length() - 1,
+              tree_top_ms=f"{C.device_ms(lambda: P2K.hash_tree(level), 20):.4f}",
+              level_loop_ms=f"{C.device_ms(loop, 20):.4f}",
+              tree_top_host_ms=f"{C.host_ms(lambda: P2K.hash_tree(level), 20):.4f}",
+              level_loop_host_ms=f"{C.host_ms(loop, 20):.4f}")
+    C.say("sweep", tree_top=P2K.TREE_TOP)
+
+
 if __name__ == "__main__":
-    main()
+    if "--sweep" in sys.argv[1:]:
+        sweep()
+    else:
+        main()
