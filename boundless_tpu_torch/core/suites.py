@@ -54,23 +54,18 @@ class Poseidon254Suite:
         matrix = matrix.contiguous()
         cur = P254K.hash_rows(matrix)
         levels = [cur]
-        while cur.shape[0] > 1:
+        while cur.shape[0] > P254K.TREE_TOP:
             # rows 2i and 2i+1 are adjacent: the (n/2, 16) view is [l | r]
-            cur = P254K.hash_level(cur.view(-1, 16))
+            cur = P254K.hash_level(cur.view(-1, 16), trusted=True)
             levels.append(cur)
+        if cur.shape[0] > 1:  # the rest in one launch on the card
+            levels.extend(P254K.hash_tree(cur))
         return M.MerkleTree(levels=tuple(levels), matrix=matrix)
 
     def verify_rows(self, root, indices, rows, paths):
-        cur = P254K.hash_rows(rows.contiguous())
-        idx = indices
-        for d in range(paths.shape[1]):
-            sib = paths[:, d]
-            is_right = (idx & 1).bool()[:, None]
-            left = torch.where(is_right, sib, cur)
-            right = torch.where(is_right, cur, sib)
-            cur = P254K.hash_pairs(left, right)
-            idx = idx >> 1
-        return torch.all(cur == root[None, :], dim=-1)
+        leaves = P254K.hash_rows(rows.contiguous())
+        roots = P254K.hash_paths(leaves, indices, paths)
+        return torch.all(roots == root[None, :], dim=-1)
 
     def transcript(self, device="cpu"):
         return Transcript254(device)

@@ -1,5 +1,5 @@
-// BN254 G1 multi-scalar multiplication (Pippenger, 8-bit windows) on
-// Hopper (sm_90a).
+// BN254 G1 multi-scalar multiplication (Pippenger, 8-bit signed windows)
+// on Hopper (sm_90a).
 //
 // Replaces the TPU-shaped XLA MSM of boundless_tpu/groth16/msm_tpu.py:
 // msm_pippenger (:237) and its device half _pip_device (:187), which sum
@@ -9,40 +9,50 @@
 // join the windows with ec_double (:71). It computes the same function,
 // sum_i s_i * P_i over G1, with another schedule.
 //
-// Inputs (prepared by groth16/msm_device.py in torch: the scalars' bytes
-// are the 32 windows' digits, zero digits dropped, entries sorted by
-// bucket = window * 256 + digit, each bucket's list cut into chunks of at
-// most CHUNK entries):
+// Inputs (prepared by groth16/msm_device.py in torch): each scalar is
+// recoded into 32 signed 8-bit digits d in [-127, 128] (sum_w d_w 2^(8w)
+// = s; r < 0x31 * 2^248, so window 31 never carries out); an entry is a
+// nonzero digit, kept in bucket window * 128 + |d| - 1, with its point's
+// index, bitwise negated (~i < 0) where d < 0. Entries are sorted by
+// bucket and each bucket's list is cut into chunks:
 //   points  (n, 16) u32: affine x, y in Montgomery form (R = 2^256,
 //           csrc/bn254_field.cuh), (0, 0) for the point at infinity;
-//   idx     (E,) point index of each sorted entry;
+//   idx     (E,) the signed point index of each sorted entry;
 //   chunk_start, chunk_len (C,): each chunk's entries;
-//   bucket_chunk0, bucket_chunks (8192,): each bucket's chunks.
-// Three launches:
-//   1. chunk_kernel: one thread a chunk sums its points into a Jacobian
-//      partial (mixed additions), so that a bucket of thousands of entries
-//      spreads over many threads (there are only 32 x 255 buckets, against
-//      ~270k resident threads on 132 SMs);
+//   bucket_chunk0, bucket_chunks (4096,): each bucket's chunks.
+// Four launches:
+//   1. chunk_kernel: one thread a chunk sums its points (y negated for a
+//      negative digit, q - y) into a Jacobian partial, by mixed additions;
 //   2. bucket_kernel: one thread a bucket sums its chunks' partials;
-//   3. window_kernel: one block of 32 threads: thread w reduces window w,
-//      sum_d d * B_d, by a running suffix sum (B_255 + ... + B_d added to a
-//      total for d = 255 .. 1); thread 0 then joins the windows, most
-//      significant first, with 8 doublings and one addition each.
+//   3. slice_kernel: the bit slices of every window, S_(w,b) = the sum of
+//      the buckets whose |d| has bit b set (64 buckets for b < 7, the one
+//      of d = 128 for b = 7), so that sum_d d B_d = sum_b 2^b S_(w,b): 8
+//      lanes a slice add 8 buckets each, then 3 butterfly steps by
+//      __shfl_xor_sync;
+//   4. window_kernel: one block of 32 threads: thread w forms window w's
+//      sum, S_(w,7) doubled and added down to S_(w,0) (7 doublings);
+//      thread 0 then joins the windows, most significant first, with 8
+//      doublings and one addition each.
 // Points are Jacobian (X, Y, Z), Z = 0 at infinity; the additions handle
 // infinity, doubling (P + P) and negation (P + -P) exactly, with branches
-// (a thread walks its own list, so they rarely diverge).
+// (a bucket may hold P and -P now). Every value a comparison reads is
+// canonical.
 //
 // What bounds it on this card: the 32-bit multiply-adds of its field
 // products. A mixed addition is 11 Montgomery products, a Jacobian one 16,
-// a doubling 6 (plus squarings); each product is 128 32x32->64 products
-// (two multiply-adds' issue each on Hopper, which has no 64-bit
-// multiplier). At n points that is about 32 n mixed additions, ~45,000 n
-// wide products, against 64 bytes read a point: bound by operations, not
-// bytes. This first version does nothing more about it than keeping every
-// limb in registers; signed digits, larger windows, batch-affine additions
-// and hand-scheduled carry chains are later work, and the window kernel's
-// 32 threads (2 x 255 dependent additions each) are a latency tail that
-// does not shrink with n.
+// a doubling 7; each product is 64 32x32->64 products and a reduction. At
+// n points that is about 32 n mixed additions, against 64 bytes read a
+// point: bound by operations, not bytes. Latency: the passes after the
+// chunks are chains on few threads, a fixed tail whatever n. A window's
+// sum by a running suffix sum would be 2 x 255 dependent additions on one
+// thread; here the longest chain after the bucket pass is a slice's 11
+// additions, a window's 7 doublings and 7 additions, and the join's 248
+// doublings and 31 additions. The signed
+// digits halve the buckets (the bucket pass's threads add twice the
+// chunks) and the wrapper's chunk length grows with n (msm_device.prep),
+// so that a bucket's chain stays short. The curve functions that a pass
+// calls from several places (jac_add, jac_double) are one copy each; the
+// chunk pass's mixed addition is inlined.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,8 +63,10 @@ namespace {
 using bn254::Fq;
 
 constexpr int WINDOWS = 32;
-constexpr int BUCKETS = 256;
+constexpr int BUCKETS = 128;  // |d| = 1 .. 128
 constexpr int WINDOW_BITS = 8;
+constexpr int SLICE_LANES = 8;  // lanes a bit slice
+constexpr int SLICE_MEMBERS = 64;  // buckets of a slice for b < 7
 constexpr int THREADS = 128;
 
 struct Jac {
@@ -78,7 +90,7 @@ __device__ __forceinline__ void fq_mont_one(uint32_t r[8]) {
 }
 
 // p = 2p (dbl-2009-l, a = 0; bn254.G1.double). No point of G1 has Y = 0.
-__device__ void jac_double(Jac& p) {
+__device__ __noinline__ void jac_double(Jac& p) {
   if (is_inf(p)) return;
   uint32_t a[8], b[8], c[8], d[8], e[8], f[8], t[8];
   bn254::mul<Fq>(a, p.x, p.x);
@@ -131,7 +143,7 @@ __device__ __forceinline__ void add_tail(Jac& out, const uint32_t u1[8],
 }
 
 // p += q (Jacobian + Jacobian; bn254.G1.add).
-__device__ void jac_add(Jac& p, const Jac& q) {
+__device__ __noinline__ void jac_add(Jac& p, const Jac& q) {
   if (is_inf(q)) return;
   if (is_inf(p)) {
     p = q;
@@ -165,7 +177,7 @@ __device__ void jac_add(Jac& p, const Jac& q) {
 }
 
 // p += (x2, y2), an affine point ((0, 0) is infinity): Z2 = 1.
-__device__ void jac_add_affine(Jac& p, const uint32_t x2[8],
+__device__ __forceinline__ void jac_add_affine(Jac& p, const uint32_t x2[8],
                                const uint32_t y2[8]) {
   if (bn254::is_zero(x2) && bn254::is_zero(y2)) return;
   if (is_inf(p)) {
@@ -225,15 +237,19 @@ __global__ void __launch_bounds__(THREADS)
   set_inf(acc);
   const long long s = chunk_start[c];
   const int len = chunk_len[c];
+  const uint32_t zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll 1
   for (int e = 0; e < len; ++e) {
-    const uint32_t* pt = points + 16ll * idx[s + e];
+    const int signed_i = idx[s + e];
+    const bool neg = signed_i < 0;
+    const uint32_t* pt = points + 16ll * (neg ? ~signed_i : signed_i);
     uint32_t x[8], y[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       x[k] = pt[k];
       y[k] = pt[8 + k];
     }
+    if (neg) bn254::sub<Fq>(y, zero, y);  // q - y; infinity's 0 stays 0
     jac_add_affine(acc, x, y);
   }
   store_jac(partial + 24 * c, acc);
@@ -257,24 +273,62 @@ __global__ void __launch_bounds__(THREADS)
   store_jac(buckets + 24 * b, acc);
 }
 
+// The digit of member t of bit slice b: the t-th of 1 .. 127 with bit b
+// set (b < 7), or 128 (b = 7, t = 0).
+__device__ __forceinline__ int slice_digit(int b, int t) {
+  if (b == WINDOW_BITS - 1) return 128;
+  return ((t >> b) << (b + 1)) | (1 << b) | (t & ((1 << b) - 1));
+}
+
+// Slice (w, b) = thread / SLICE_LANES; its lane j adds members j, j + 8,
+// ..., then 3 butterfly steps give every lane the slice's sum. Every lane
+// runs every step (the shuffles need the whole warp).
+__global__ void __launch_bounds__(THREADS)
+    slice_kernel(const uint32_t* __restrict__ buckets,
+                 uint32_t* __restrict__ slices) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int slice = t / SLICE_LANES, j = t % SLICE_LANES;
+  const int w = slice / WINDOW_BITS, b = slice % WINDOW_BITS;
+  const int members = b == WINDOW_BITS - 1 ? 1 : SLICE_MEMBERS;
+  Jac acc, q;
+  set_inf(acc);
+  constexpr int STEPS = SLICE_MEMBERS / SLICE_LANES + 3;
+#pragma unroll 1
+  for (int step = 0; step < STEPS; ++step) {
+    const int m = step * SLICE_LANES + j;
+    if (step < SLICE_MEMBERS / SLICE_LANES) {
+      if (m >= members) continue;
+      load_jac(q, buckets + 24 * (w * BUCKETS + slice_digit(b, m) - 1));
+    } else {
+      const int mask = 1 << (step - SLICE_MEMBERS / SLICE_LANES);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        q.x[k] = __shfl_xor_sync(0xffffffffu, acc.x[k], mask);
+        q.y[k] = __shfl_xor_sync(0xffffffffu, acc.y[k], mask);
+        q.z[k] = __shfl_xor_sync(0xffffffffu, acc.z[k], mask);
+      }
+    }
+    jac_add(acc, q);
+  }
+  if (j == 0) store_jac(slices + 24 * slice, acc);
+}
+
 __global__ void __launch_bounds__(WINDOWS)
-    window_kernel(const uint32_t* __restrict__ buckets,
+    window_kernel(const uint32_t* __restrict__ slices,
                   uint32_t* __restrict__ out) {
   __shared__ uint32_t win[WINDOWS * 24];
   const int w = threadIdx.x;
-  Jac running, total, q;
-  set_inf(running);
-  set_inf(total);
+  Jac acc, q;
+  load_jac(acc, slices + 24 * (w * WINDOW_BITS + WINDOW_BITS - 1));
 #pragma unroll 1
-  for (int d = BUCKETS - 1; d >= 1; --d) {
-    load_jac(q, buckets + 24 * (w * BUCKETS + d));
-    jac_add(running, q);
-    jac_add(total, running);
+  for (int b = WINDOW_BITS - 2; b >= 0; --b) {
+    jac_double(acc);
+    load_jac(q, slices + 24 * (w * WINDOW_BITS + b));
+    jac_add(acc, q);
   }
-  store_jac(win + 24 * w, total);
+  store_jac(win + 24 * w, acc);
   __syncthreads();
   if (w != 0) return;
-  Jac acc;
   load_jac(acc, win + 24 * (WINDOWS - 1));
 #pragma unroll 1
   for (int j = WINDOWS - 2; j >= 0; --j) {
@@ -292,17 +346,22 @@ unsigned grid_of(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); 
 
 extern "C" {
 
-// The number of buckets (windows x digits) the bucket arrays hold.
+// The number of buckets (windows x |digits|) the bucket arrays hold.
 int bt_msm_buckets() { return WINDOWS * BUCKETS; }
 
+// The number of bit slices (windows x bits) the slice array holds.
+int bt_msm_slices() { return WINDOWS * WINDOW_BITS; }
+
 // sum_i s_i P_i into out (24 u32: Jacobian X, Y, Z in Montgomery form).
-// partial: (chunks, 24) and buckets: (8192, 24) u32 scratch. Three
-// launches on `stream`; returns cudaGetLastError() after the last.
+// partial: (chunks, 24), buckets: (4096, 24) and slices: (256, 24) u32
+// scratch. Four launches on `stream`; returns cudaGetLastError() after
+// the last.
 int bt_msm_run(const uint32_t* points, const int* idx,
                const long long* chunk_start, const int* chunk_len,
                long long chunks, const long long* bucket_chunk0,
                const int* bucket_chunks, uint32_t* partial,
-               uint32_t* buckets, uint32_t* out, void* stream) {
+               uint32_t* buckets, uint32_t* slices, uint32_t* out,
+               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (chunks > 0)
     chunk_kernel<<<grid_of(chunks), THREADS, 0, st>>>(
@@ -313,7 +372,11 @@ int bt_msm_run(const uint32_t* points, const int* idx,
       partial, bucket_chunk0, bucket_chunks, buckets);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  window_kernel<<<1, WINDOWS, 0, st>>>(buckets, out);
+  const long long slice_threads = WINDOWS * WINDOW_BITS * SLICE_LANES;
+  slice_kernel<<<grid_of(slice_threads), THREADS, 0, st>>>(buckets, slices);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  window_kernel<<<1, WINDOWS, 0, st>>>(slices, out);
   return (int)cudaGetLastError();
 }
 

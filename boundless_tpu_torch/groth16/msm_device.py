@@ -2,17 +2,21 @@
 
 Counterpart of `boundless_tpu/groth16/msm_tpu.py`'s Pippenger
 (`msm_pippenger` :237). `msm(points, scalars, device)` computes
-sum_i s_i P_i with 8-bit windows (32 windows x 256 digits):
+sum_i s_i P_i with 8-bit signed windows (32 windows x 128 buckets):
 
   * points: `device_points` converts a list of G1 to an (n, 16) int32
     tensor of affine Montgomery limbs (`groth16/limbs.py`; x then y, u32
     bit patterns, (0, 0) at infinity) once, with one batched inversion,
     and caches it for the list (a ProvingKey's point lists are converted
     once and stay on the card; the reference converts on every call);
-  * `prep`: the scalars' 32 little-endian bytes are the windows' digits.
-    In torch on the card: zero digits dropped, entries sorted by bucket
-    (window * 256 + digit), each bucket's list cut into chunks of at most
-    CHUNK entries (`sort`, `bincount`, `cumsum`);
+  * `prep`: each scalar's 32 little-endian bytes recoded into signed
+    digits in [-127, 128] (`signed_digits`: a byte above 128 becomes byte
+    - 256 and carries one into the next window; r's top byte is 0x30, so
+    window 31 never carries out). In torch on the card: zero digits
+    dropped, each entry's point index bitwise negated for a negative
+    digit (the kernel negates y), entries sorted by bucket (window * 128
+    + |d| - 1), each bucket's list cut into chunks of `chunk_for(E)`
+    entries (`sort`, `bincount`, `cumsum`);
   * the curve arithmetic runs in `kernels/msm.py` (`csrc/msm.cu`) on a
     CUDA tensor, and in `plain_pippenger` here on a CPU tensor.
 
@@ -20,9 +24,9 @@ sum_i s_i P_i with 8-bit windows (32 windows x 256 digits):
 torch limb products (`limbs.mul`: int64, one reduction a product). It sums
 each chunk and then each bucket with branchless Jacobian additions
 (`ec_add`, the reference's :92 selects) vectorized over chunks and
-buckets, reduces each window as sum_b 2^b (sum of the buckets whose digit
-has bit b), and joins the 32 windows on the host (Python ints). The kernel
-does the last two steps in one block (`csrc/msm.cu`).
+buckets, reduces each window as sum_b 2^b (sum of the buckets whose |d|
+has bit b), and joins the 32 windows on the host (Python ints). The
+kernel does the last two steps in two launches (`csrc/msm.cu`).
 """
 
 from __future__ import annotations
@@ -38,8 +42,10 @@ from .bn254 import G1, P as Q_INT, R
 
 WINDOW_BITS = 8
 WINDOWS = 32  # ceil(254 / 8)
-BUCKETS = 1 << WINDOW_BITS
-CHUNK = 32  # entries a thread sums before the bucket pass
+BUCKETS = 1 << (WINDOW_BITS - 1)  # |d| = 1 .. 128
+CHUNK = 32  # the fewest entries a thread sums before the bucket pass
+# the most chunks a bucket's thread adds, where the entries allow
+BUCKET_CHUNKS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +131,9 @@ def point_words(p: G1) -> np.ndarray:
 
 @dataclasses.dataclass
 class Prep:
-    idx: torch.Tensor  # (E,) int32 point index of each sorted entry
+    # (E,) int32 point index i of each sorted entry, ~i (< 0) for a
+    # negative digit
+    idx: torch.Tensor
     chunk_start: torch.Tensor  # (C,) int64
     chunk_len: torch.Tensor  # (C,) int32
     bucket_chunk0: torch.Tensor  # (WINDOWS * BUCKETS,) int64
@@ -133,30 +141,57 @@ class Prep:
 
 
 def digits(scalars: Sequence[int], device) -> torch.Tensor:
-    """(n, 32) uint8: byte j of s_i mod R is window j's digit."""
+    """(n, 32) uint8: byte j of s_i mod R."""
     blob = b"".join((int(s) % R).to_bytes(32, "little") for s in scalars)
     return torch.frombuffer(bytearray(blob), dtype=torch.uint8).view(
         -1, WINDOWS).to(device)
 
 
-def prep(scalars: Sequence[int], device) -> Prep:
+def signed_digits(scalars: Sequence[int], device) -> torch.Tensor:
+    """(n, 32) int64 digits d in [-127, 128] with sum_w d_w 256^w = s_i
+    mod R: a byte (plus the carry in) above 128 becomes it - 256 and
+    carries one into the next window. Window 31 never carries out: its
+    byte is at most 0x30 (R < 0x31 * 2^248)."""
     d = digits(scalars, device).to(torch.int64)
+    carry = torch.zeros(d.shape[0], dtype=torch.int64, device=d.device)
+    out = torch.empty_like(d)
+    for w in range(WINDOWS):
+        v = d[:, w] + carry
+        carry = (v > BUCKETS).to(torch.int64)
+        out[:, w] = v - (carry << WINDOW_BITS)
+    return out
+
+
+def chunk_for(entries: int) -> int:
+    """Entries a chunk: CHUNK, or more where the buckets would otherwise
+    hold over BUCKET_CHUNKS chunks on average (a bucket's thread chains
+    its chunks)."""
+    mean = -(-entries // (WINDOWS * BUCKETS))
+    return max(CHUNK, -(-mean // BUCKET_CHUNKS))
+
+
+def prep(scalars: Sequence[int], device) -> Prep:
+    d = signed_digits(scalars, device)
     n = d.shape[0]
-    keys = (d + torch.arange(WINDOWS, device=device) * BUCKETS).reshape(-1)
+    mag = d.abs()
+    keys = (mag - 1 + torch.arange(WINDOWS, device=device) * BUCKETS
+            ).reshape(-1)
     point = torch.arange(n, device=device).repeat_interleave(WINDOWS)
-    nz = d.reshape(-1) != 0
+    signed = torch.where(d.reshape(-1) < 0, ~point, point)
+    nz = mag.reshape(-1) != 0
     keys, order = torch.sort(keys[nz], stable=True)
-    idx = point[nz][order].to(torch.int32)
+    idx = signed[nz][order].to(torch.int32)
     counts = torch.bincount(keys, minlength=WINDOWS * BUCKETS)
+    chunk = chunk_for(idx.shape[0])
     start = torch.cumsum(counts, 0) - counts
-    nch = (counts + CHUNK - 1) // CHUNK
+    nch = (counts + chunk - 1) // chunk
     chunk0 = torch.cumsum(nch, 0) - nch
     bucket = torch.repeat_interleave(
         torch.arange(WINDOWS * BUCKETS, device=device), nch)
     j = torch.arange(bucket.shape[0], device=device) - chunk0[bucket]
-    chunk_start = start[bucket] + j * CHUNK
-    chunk_len = torch.minimum(counts[bucket] - j * CHUNK,
-                              torch.full_like(j, CHUNK))
+    chunk_start = start[bucket] + j * chunk
+    chunk_len = torch.minimum(counts[bucket] - j * chunk,
+                              torch.full_like(j, chunk))
     return Prep(idx=idx, chunk_start=chunk_start,
                 chunk_len=chunk_len.to(torch.int32), bucket_chunk0=chunk0,
                 bucket_chunks=nch.to(torch.int32))
@@ -238,38 +273,58 @@ def _jacobian(points: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=1)
 
 
-def _masked_sum(acc, items, count, start, index):
-    """acc[k] += items[index[start[k] + s]] for s < count[k], one step at a
-    time across every row k."""
+def _masked_sum(acc, items, count, start):
+    """acc[k] += items[start[k] + s] for s < count[k], one step at a time
+    across every row k."""
     steps = int(count.max()) if count.numel() else 0
     for s in range(steps):
         live = s < count
         pos = torch.where(live, start + s, torch.zeros_like(start))
-        nxt = items[index[pos]] if index is not None else items[pos]
+        nxt = items[pos]
         acc = torch.where(live[:, None, None], ec_add(acc, nxt), acc)
     return acc
 
 
+def _entries(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(E, 3, 8) Jacobian limbs of the signed entries: the point ~i with y
+    negated (q - y) where the index is negative."""
+    pts = _jacobian(points)
+    i = idx.to(torch.int64)
+    neg = i < 0
+    ent = pts[torch.where(neg, ~i, i)]
+    y = ent[:, 1]
+    ent[:, 1] = torch.where(neg[:, None], LB.sub(torch.zeros_like(y), y), y)
+    return ent
+
+
 def plain_windows(points: torch.Tensor, pr: Prep) -> torch.Tensor:
     """Each window's sum_d d * B_d as (WINDOWS, 3, 8) Jacobian limbs."""
-    pts = _jacobian(points)
     dev = points.device
+    ent = _entries(points, pr.idx)
     nchunks = pr.chunk_start.shape[0]
     inf = torch.zeros((nchunks, 3, LB.L), dtype=torch.int64, device=dev)
-    partial = _masked_sum(inf, pts, pr.chunk_len.to(torch.int64),
-                          pr.chunk_start, pr.idx.to(torch.int64))
+    partial = _masked_sum(inf, ent, pr.chunk_len.to(torch.int64),
+                          pr.chunk_start)
     binf = torch.zeros((WINDOWS * BUCKETS, 3, LB.L), dtype=torch.int64,
                        device=dev)
     buckets = _masked_sum(binf, partial, pr.bucket_chunks.to(torch.int64),
-                          pr.bucket_chunk0, None)
-    buckets = buckets.view(WINDOWS, BUCKETS, 3, LB.L)
-    # sum_d d * B_d = sum_b 2^b * (sum of the B_d whose digit has bit b)
-    d = torch.arange(BUCKETS, device=dev)
-    sel = torch.stack([d[(d >> b) & 1 == 1] for b in range(WINDOW_BITS)])
-    s = buckets[:, sel]  # (WINDOWS, bits, 128, 3, 8)
+                          pr.bucket_chunk0)
+    # bucket |d| - 1 = 0 .. 127, and an infinity at 128 to pad the slices
+    buckets = torch.cat([buckets.view(WINDOWS, BUCKETS, 3, LB.L),
+                         torch.zeros((WINDOWS, 1, 3, LB.L), dtype=torch.int64,
+                                     device=dev)], dim=1)
+    # sum_d d * B_d = sum_b 2^b * (sum of the B_d whose |d| has bit b)
+    d = torch.arange(1, BUCKETS + 1, device=dev)
+    half = BUCKETS // 2
+    sel = []
+    for b in range(WINDOW_BITS):
+        members = d[(d >> b) & 1 == 1] - 1
+        pad = torch.full((half - members.shape[0],), BUCKETS, device=dev)
+        sel.append(torch.cat([members, pad]))
+    s = buckets[:, torch.stack(sel)]  # (WINDOWS, bits, 64, 3, 8)
     while s.shape[2] > 1:
-        half = s.shape[2] // 2
-        s = ec_add(s[:, :, :half], s[:, :, half:])
+        h = s.shape[2] // 2
+        s = ec_add(s[:, :, :h], s[:, :, h:])
     s = s[:, :, 0]
     acc = s[:, WINDOW_BITS - 1]
     for b in range(WINDOW_BITS - 2, -1, -1):

@@ -3,8 +3,8 @@
 `pippenger(points, prep)` sums the prepped entries (`groth16/msm_device.
 prep`) over an (n, 16) int32 tensor of affine Montgomery points and
 returns the (24,) Jacobian words of the result. On a CUDA tensor it
-launches the kernel (three launches in one call: chunks, buckets,
-windows) or raises; on a CPU tensor it runs the plain version
+launches the kernel (four launches in one call: chunks, buckets, bit
+slices, windows) or raises; on a CPU tensor it runs the plain version
 (`msm_device.plain_pippenger`). There is no fallback from the card to the
 plain or the host MSM.
 
@@ -27,8 +27,9 @@ def _lib():
     if not getattr(lib, "_bt_typed", False):
         vp = ctypes.c_void_p
         lib.bt_msm_buckets.restype = ctypes.c_int
+        lib.bt_msm_slices.restype = ctypes.c_int
         lib.bt_msm_run.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp, vp,
-                                   vp, vp, vp, vp]
+                                   vp, vp, vp, vp, vp]
         lib.bt_msm_run.restype = ctypes.c_int
         lib._bt_typed = True
     return lib
@@ -68,13 +69,16 @@ def pippenger(points: torch.Tensor, prep) -> torch.Tensor:
     partial = torch.empty((max(chunks, 1), 24), dtype=torch.int32, device=dev)
     buckets = torch.empty((lib.bt_msm_buckets(), 24), dtype=torch.int32,
                           device=dev)
+    slices = torch.empty((lib.bt_msm_slices(), 24), dtype=torch.int32,
+                         device=dev)
     out = torch.empty(24, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.bt_msm_run(
             points.data_ptr(), prep.idx.data_ptr(),
             prep.chunk_start.data_ptr(), prep.chunk_len.data_ptr(), chunks,
             prep.bucket_chunk0.data_ptr(), prep.bucket_chunks.data_ptr(),
-            partial.data_ptr(), buckets.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), buckets.data_ptr(), slices.data_ptr(),
+            out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"MSM launch failed: CUDA error {err}")

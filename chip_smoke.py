@@ -14,14 +14,18 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               the generated fused constraint kernels of both AIR variants
               (kernels/cons.py), plus the probes and the spin kernel of
               device_ms; prints nvcc
-              seconds, registers, spills and blocks per SM.
+              seconds, registers, spills and blocks per SM, and for the
+              two BN254 libraries each kernel's registers, spills and
+              stack frame.
   3. probe    independent chains of bb::mul and of bb::add on every SM:
               achieved operations and 32-bit instructions per second beside
               the published issue rate the bounds use; one warp's dependent
               chains of bb::mul, bb::add, a shuffle and a shuffle-and-add:
               clocks each, and the critical path of one
               permutation in every layout (p2_critical_path), which gives
-              the sponge's latency bound.
+              the sponge's latency bound; bn254::mul<Fr>'s dependent
+              latency (clocks) and its products per second on every SM,
+              which give the BN254 kernels' latency bounds.
   4. kernel   each kernel against its plain torch version on the card, bit
               for bit (tolerance 0: field words). Sponge: every layout (1,
               2, 4 and 8 lanes a hash) at N in SPONGE_CHECK_N and at each
@@ -113,20 +117,33 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               every recursion data trace came from rec_eval. The sponge's
               device time by kind in one more, profiled KeccakAir proof
               and lift_keccak.
-  9. p254     the p254 sponge (csrc/poseidon254.cu) against its plain
-              version (the Python-int hash), bit for bit, at 2^10 rows x
-              48, 64, 24 and 16 columns (the identity proof's groups), on
-              2^10 pairs and every level of a 2^10-leaf commit; device ms
-              at 2^16 x 64, of the tree levels above them and of the whole
-              commit, each beside its bound; the plain ms at 2^10 x 64.
- 10. msm      the BN254 MSM (csrc/msm.cu) against its plain torch version
-              at 2^10 points and against the host Pippenger
-              (groth16/msm.py) at 2^12, with zero scalars, repeated digits
-              and points, a point and its negation, and a point at
-              infinity; then P_i = i * G at 2^16, 2^18 and 2^20 points,
-              where sum_i s_i P_i must equal (sum_i i s_i mod r) * G, and
-              the kernel's device ms there beside its bound; the plain ms
-              at 2^10.
+ 9. p254     the p254 sponge (csrc/poseidon254.cu) against its plain
+              version (the Python-int hash), bit for bit, in every layout:
+              one thread and 3 lanes a hash at 2^10 rows x 48, 64, 24 and
+              16 columns (the identity proof's groups) and on 2^10 pairs,
+              the one-block tree top at every level size up to TREE_TOP,
+              every level of a 2^10-leaf commit; sampled (spread rows and
+              the last block) at the wrap's 2^16-row launches and on every
+              level of a 2^16-leaf commit, its tree top included; the path
+              walk of P254_PATHS opened paths of that commit in one
+              launch, verify_rows accepting them, refusing a flipped
+              sibling and raising on a sibling of x + r. Every layout must
+              have launched. Device ms of a one-pair launch, of 2^16 x 64
+              leaves, of the levels above them and of the whole commit,
+              each beside its throughput bound (the dense schedule's count
+              of the work) and its latency bound; the plain ms at 2^10 x
+              64.
+ 10. msm      the BN254 MSM (csrc/msm.cu, signed 8-bit digits, bit-slice
+              window sums) against its plain torch version at 2^10 points
+              and against the host Pippenger (groth16/msm.py) at 2^12,
+              with zero scalars, one, r - 1, digits of exactly 128 and of
+              -127, repeated digits and points, a point and its negation
+              under one scalar and a point under s and r - s, and a point
+              at infinity; then P_i = i * G at 497 (a [groth16] call's
+              size), 2^16, 2^18 and 2^20 points, where sum_i s_i P_i must
+              equal (sum_i i s_i mod r) * G, and the kernel's device ms
+              there beside its bound and latency bound; the plain ms at
+              2^10.
  11. groth16  the CRS prover's path: a Merkle path of Poseidon-BN254 pair
               gadgets (depth GROTH16_DEPTH) as an R1CS, qap.setup_sparse
               (host) and qap.prove_sparse on the card; the proof verifies,
@@ -139,13 +156,15 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               wrap.verify; the EVM seal round-trips; a tampered journal and
               a tampered claim are refused. Prints each stage's host
               seconds (after a synchronize), the p254 sponge's device ms
-              and launches in the shrink, R1CS rows and variables, the
-              prover mode and the peak device memory.
+              and launches in the shrink (every layout must have run), R1CS
+              rows and variables, the prover mode and the peak device
+              memory.
 Each of the last four phases prints its seconds. The last two lines are
 the kernel table (each kernel's launches on its own path, on the main
 path for the segment prover's three kernels, [wrap] for the p254 sponge
 and [groth16] for the MSM, and on every other path; max abs error, ms,
-plain ms and bound ms) and the contract line
+plain ms and bound ms; for the two BN254 kernels also the latency bound
+and the products this design does) and the contract line
 {"ok": true, "device": {...}}.
 """
 
@@ -348,7 +367,8 @@ def phase_build():
 
     jobs = {"bt_poseidon2": P2K._lib, "bt_ntt": NK._lib,
             "bt_poseidon254": P254K._lib, "bt_msm": MK._lib,
-            "bt_issue_probe": probe_lib, "bt_spin": spin_lib}
+            "bt_issue_probe": probe_lib, "bt_spin": spin_lib,
+            "bt_bn_probe": bn_probe_lib}
     for variant, air in prove._AIRS.items():
         jobs[f"bt_cons_{variant}"] = (lambda a=air: CK.build_kernels(a))
     errors = {}
@@ -399,6 +419,10 @@ def phase_build():
         say("build", library="bt_poseidon2", registers_spill_bytes=",".join(
             f"{lanes.get(k, 'tree_top')}:{regs}/{spill}"
             for _, k, spill, regs in funcs))
+    for name in ("bt_poseidon254", "bt_msm"):  # by kernel
+        if name in build.PTXAS_LOG:
+            say("build", library=name, registers_spill_stack_bytes=
+                ptxas_summary(build.PTXAS_LOG[name]))
     say("build", parallel_wall_seconds=f"{wall:.3f}")
     if errors:
         name, err = next(iter(errors.items()))
@@ -482,6 +506,60 @@ extern "C" int bt_spin(long long clocks, void* stream) {
 }
 """
 PROBE_CHAINS, PROBE_ITERS, PROBE_THREADS = 8, 2048, 256
+# bn254::mul<Fr> (csrc/bn254_field.cuh): one warp's dependent chains (SM
+# clocks a product) and BN_CHAINS independent chains a thread on every SM
+# (products per second). tools/bn254_profile.py builds it against another
+# tree's header too.
+BN_PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "bn254_field.cuh"
+using bn254::Fr;
+__device__ __forceinline__ void start(uint32_t a[8], const uint32_t* x) {
+  for (int k = 0; k < 8; ++k) a[k] = x[k];
+  a[7] &= 0x0fffffffu;  // below r
+}
+__global__ void latency(uint32_t* x, long long* clk, unsigned iters) {
+  const unsigned t = threadIdx.x;
+  uint32_t a[8], b[8];
+  start(a, x + 16 * t);
+  start(b, x + 16 * t + 8);
+  const long long t0 = clock64();
+  for (unsigned i = 0; i < iters; ++i) bn254::mul<Fr>(a, a, b);
+  const long long t1 = clock64();
+  for (int k = 0; k < 8; ++k) x[16 * t + k] = a[k];
+  clk[t] = t1 - t0;
+}
+constexpr int CHAINS = 4;
+__global__ void throughput(uint32_t* x, unsigned iters) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t a[CHAINS][8], b[8];
+  start(b, x + 16 * t + 8);
+  for (int c = 0; c < CHAINS; ++c) {
+    start(a[c], x + 16 * t);
+    a[c][0] ^= c;
+  }
+  for (unsigned i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < CHAINS; ++c) bn254::mul<Fr>(a[c], a[c], b);
+  }
+  for (int c = 1; c < CHAINS; ++c)
+    for (int k = 0; k < 8; ++k) a[0][k] ^= a[c][k];
+  for (int k = 0; k < 8; ++k) x[16 * t + k] = a[0][k];
+}
+extern "C" int bt_mul_latency(uint32_t* x, long long* clk, unsigned iters,
+                              void* stream) {
+  latency<<<1, 32, 0, (cudaStream_t)stream>>>(x, clk, iters);
+  return (int)cudaGetLastError();
+}
+extern "C" int bt_mul_throughput(uint32_t* x, unsigned blocks,
+                                 unsigned threads, unsigned iters,
+                                 void* stream) {
+  throughput<<<blocks, threads, 0, (cudaStream_t)stream>>>(x, iters);
+  return (int)cudaGetLastError();
+}
+"""
+BN_CHAINS, BN_ITERS, BN_LATENCY_ITERS, BN_THREADS = 4, 64, 256, 128
 LATENCY_ITERS = 4096
 LATENCY_OPS = ("mul", "add", "shfl", "shfl_add")
 
@@ -509,6 +587,72 @@ def spin_lib():
     lib.bt_spin.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
     lib.bt_spin.restype = ctypes.c_int
     return lib
+
+
+def bn_probe_lib():
+    import ctypes
+
+    from boundless_tpu_torch.kernels import build
+
+    lib = build.load_source("bt_bn_probe", lambda: BN_PROBE_SOURCE)
+    vp, u = ctypes.c_void_p, ctypes.c_uint
+    lib.bt_mul_latency.argtypes = [vp, vp, u, vp]
+    lib.bt_mul_latency.restype = ctypes.c_int
+    lib.bt_mul_throughput.argtypes = [vp, u, u, u, vp]
+    lib.bt_mul_throughput.restype = ctypes.c_int
+    return lib
+
+
+def bn_mul_probe(lib, dev, sm_clocks_per_s) -> dict:
+    """bn254::mul<Fr>: the dependent latency of one product (SM clocks,
+    one warp, one chain a lane) and the products per second of
+    independent chains on every SM."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = sms * 2048 // BN_THREADS
+    x = torch.randint(0, 1 << 31, (blocks * BN_THREADS * 16,),
+                      dtype=torch.int32, device=dev)
+    clk = torch.zeros(32, dtype=torch.int64, device=dev)
+    for _ in range(2):  # the first run warms the instruction cache
+        if lib.bt_mul_latency(x.data_ptr(), clk.data_ptr(), BN_LATENCY_ITERS,
+                              stream):
+            raise RuntimeError("bn254 latency probe launch failed")
+    torch.cuda.synchronize()
+    latency = float(clk.max()) / BN_LATENCY_ITERS
+
+    def run():
+        if lib.bt_mul_throughput(x.data_ptr(), blocks, BN_THREADS, BN_ITERS,
+                                 stream):
+            raise RuntimeError("bn254 throughput probe launch failed")
+
+    ms = cuda_ms(run, 5)
+    per_s = blocks * BN_THREADS * BN_CHAINS * BN_ITERS / (ms * 1e-3)
+    return {"bn_mul_latency_clocks": latency, "bn_mul_products_per_s": per_s,
+            "bn_mul_sm_clocks_per_product": sm_clocks_per_s / per_s}
+
+
+def ptxas_summary(log: str) -> str:
+    """kernel:registers/spill-store bytes/stack-frame bytes for each entry
+    function of a ptxas -v report."""
+    out = []
+    for fn, body in re.findall(r"Compiling entry function '(\S+)'(.*?)"
+                               r"(?=Compiling entry function|\Z)", log, re.S):
+        vals = [re.search(pat, body) for pat in (
+            r"Used (\d+) registers", r"(\d+) bytes spill stores",
+            r"(\d+) bytes stack frame")]
+        out.append(kernel_name(fn) + ":" + "/".join(
+            v.group(1) if v else "?" for v in vals))
+    return ",".join(out)
+
+
+def kernel_name(mangled: str) -> str:
+    """The `..._kernel` component of a mangled entry name (its length
+    prefix decides where it starts), else the name as it is."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end(): m.end() + int(m.group())]
+        if name.endswith("_kernel"):
+            return name
+    return mangled
 
 
 def device_ms(fn, reps: int, sm_hz: float = 1.98e9) -> float:
@@ -579,6 +723,15 @@ def phase_probe(dev, sm_clocks_per_s):
         **{f"{k}_clocks": f"{v:.2f}" for k, v in lat.items()},
         **{f"permutation_critical_path_clocks_lanes{g}":
            f"{p2_critical_path(g, lat):.0f}" for g in (1, 2, 4, 8)})
+    bn = bn_mul_probe(bn_probe_lib(), dev, sm_clocks_per_s)
+    lat["bn_mul"] = bn["bn_mul_latency_clocks"]
+    lat["sm_hz"] = sm_clocks_per_s / sms
+    say("probe", op="bn254::mul<Fr>",
+        latency_clocks=f"{bn['bn_mul_latency_clocks']:.1f}",
+        products_per_s=f"{bn['bn_mul_products_per_s']:.4e}",
+        sm_clocks_per_product=f"{bn['bn_mul_sm_clocks_per_product']:.2f}",
+        p254_permutation_critical_path_clocks=
+        f"{P254_PERM_DEPTH * lat['bn_mul']:.0f}")
     return lat
 
 
@@ -962,8 +1115,9 @@ def zero_counts():
 
     P2K.LAUNCHES = NK.LAUNCHES = CK.LAUNCHES = 0
     P254K.LAUNCHES = MK.LAUNCHES = 0
-    for layout in P2K.LAUNCHES_BY_LAYOUT:
-        P2K.LAUNCHES_BY_LAYOUT[layout] = 0
+    for table in (P2K.LAUNCHES_BY_LAYOUT, P254K.LAUNCHES_BY_LAYOUT):
+        for layout in table:
+            table[layout] = 0
 
 
 SPONGE_KINDS = ("leaves", "tree_levels", "tree_top", "permute", "absorb",
@@ -987,9 +1141,9 @@ class SpongeProfile:
     where it has one).
 
     With sponge="p254" it times the p254 sponge's launches instead
-    (`kernels/poseidon254._launch`, layout "p254"): `leaves` and
-    `tree_levels` of a `Poseidon254Suite.commit`, `verifier` of its
-    `verify_rows`."""
+    (`kernels/poseidon254._launch`, by its layout): `leaves`,
+    `tree_levels` and `tree_top` of a `Poseidon254Suite.commit`,
+    `verifier` of its `verify_rows`."""
 
     SPIN_CLOCKS = 200_000
 
@@ -1066,7 +1220,8 @@ class SpongeProfile:
             patch(suites.Poseidon254Suite, "commit", spanned("commit"))
             patch(suites.Poseidon254Suite, "verify_rows",
                   spanned("verifier"))
-            patch(P254K, "_launch", timed(lambda args, kwargs: "p254"))
+            patch(P254K, "_launch", timed(
+                lambda args, kwargs: args[2] if len(args) > 2 else "lanes1"))
             return self
         patch(merkle, "commit", spanned("commit"))
         patch(merkle, "verify_rows", spanned("verifier"))
@@ -1793,38 +1948,100 @@ P254_TIME_SHAPE = (1 << 16, 64)  # the identity data group at the CI params
 # last P254_TAIL (the kernel's last thread block), and whole levels from
 # P254_WHOLE nodes down.
 P254_SAMPLE, P254_TAIL, P254_WHOLE = 128, 128, 1 << 10
+P254_PATHS = 50  # opened paths of the 2^16-leaf commit walked on the card
 MSM_PLAIN_N = 1 << 10
 MSM_HOST_N = 1 << 12
-MSM_TIME_N = (1 << 16, 1 << 18, 1 << 20)
+# 497: the size of [groth16]'s CRS prover calls
+MSM_TIME_N = (497, 1 << 16, 1 << 18, 1 << 20)
 GROTH16_DEPTH = 2  # Merkle path of Poseidon-BN254 pair gadgets
-# 32-bit multiply-adds of one 8 x 32-bit CIOS Montgomery product
-# (csrc/bn254_field.cuh): 64 + 64 + 8 32x32->64 products, each the low and
-# the high half of a product (two FMA-pipe issues, the least Hopper needs
-# for a 64-bit product: it has no 64-bit multiplier). Carries and
-# reductions (ALU) are not counted, so the bound is low.
-BN_MUL_FMA = 2 * (64 + 64 + 8)
-# Montgomery products of one Poseidon-BN254 permutation: 8 full rounds of 3
-# S-boxes (3 products each) and 57 partial rounds of one, 9 MDS products a
-# round (csrc/poseidon254.cu).
+# Montgomery products of one Poseidon-BN254 permutation in the reference's
+# dense schedule (core/poseidon_bn254.permute): 8 full rounds of 3 S-boxes
+# (3 products each) and 57 partial rounds of one, 9 MDS products a round.
+# The parent's design did this work; its count stays as a second yardstick
+# (the `_parent` bounds), so that time / bound compares the designs.
 P254_PERM_MULS = 8 * (9 + 9) + 57 * (3 + 9)
+# The products this design does (csrc/poseidon254.cu, one thread a hash):
+# a full round 9 S-box products and 3 MDS rows of 3 (one reduction a row),
+# a partial round its S-box, one row of 3 and 2 products (the sparse
+# matrix). At 3 lanes a hash a partial round issues 3 S-boxes and 3 rows.
+P254_PERM_PRODUCTS = 8 * (9 + 9) + 57 * (3 + 3 + 2)
+# Dependent products on a permutation's critical path, in either layout:
+# each of the 65 rounds an S-box (3) and then one MDS row (one sum of
+# products, one reduction), which the next round's S-box waits on.
+P254_PERM_DEPTH = 65 * (3 + 1)
 # Montgomery products of a mixed (Jacobian + affine), a Jacobian addition
-# and a doubling in csrc/msm.cu
+# and a doubling in csrc/msm.cu, and the dependent products on the
+# critical path of an addition (mixed or not) and of a doubling.
 MSM_MADD_MULS, MSM_ADD_MULS, MSM_DBL_MULS = 11, 16, 7
+MSM_ADD_DEPTH, MSM_DBL_DEPTH = 5, 3
 
 
-def bn_bound_ms(nbytes: float, products: float, sm_clocks_per_s: float):
-    """Bound of `products` BN254 Montgomery products over `nbytes`."""
-    return bound_ms(nbytes, 0, 0, sm_clocks_per_s,
-                    extra=(products * BN_MUL_FMA, 0, 0))
+def bn_wide(k: int = 1) -> int:
+    """32x32->64 products of bn254::mul_sum<M, K> (csrc/bn254_field.cuh):
+    64 for each of the K products and one reduction (8 for the m_i, 64
+    for m_i times the modulus); bn_wide(1) is one product (bn254::mul)."""
+    return 64 * k + 72
 
 
-def p254_row_products(c: int) -> int:
+# 32x32->64 products of one permutation in this design, one thread a hash
+# (the least work of either layout): a full round 9 S-box products and 3
+# MDS rows of mul_sum<3>; a partial round 3 S-box products, one row of
+# mul_sum<3> and 2 products.
+P254_PERM_WIDE = 8 * (9 * bn_wide() + 3 * bn_wide(3)) \
+    + 57 * (5 * bn_wide() + bn_wide(3))
+
+
+def bn_bound_ms(nbytes: float, wide: float, sm_clocks_per_s: float):
+    """Bound of `wide` 32x32->64 products (see bn_wide) over `nbytes`: each
+    the low and the high half of a product, two FMA-pipe issues (the least
+    Hopper needs for a 64-bit product: it has no 64-bit multiplier).
+    Carries and additions (ALU) are not counted, so the bound is low."""
+    return bound_ms(nbytes, 0, 0, sm_clocks_per_s, extra=(2 * wide, 0, 0))
+
+
+def bn_latency_ms(depth: float, lat: dict) -> float:
+    """The least time of a chain of `depth` dependent BN254 products: the
+    probed latency of bn254::mul<Fr> (SM clocks) at the maximum SM clock."""
+    return depth * lat["bn_mul"] / lat["sm_hz"] * 1e3
+
+
+def p254_row_wide(c: int, perm: int = P254_PERM_WIDE) -> int:
+    """32x32->64 products of one p254 row hash of `c` words: the
+    permutations (`perm` each; this design's by default), each felt's
+    conversion into Montgomery form (one product) and the digest's out of
+    it."""
+    return p254_chain(c) * (perm + 2 * bn_wide()) + bn_wide()
+
+
+def p254_levels_wide(n: int, top: int, perm: int = P254_PERM_WIDE) -> int:
+    """32x32->64 products of the levels above `n` leaves as p254_levels
+    forms them: n - 1 pair hashes, each a permutation and its digest out
+    of Montgomery form; the levels launched one at a time take both
+    digests of a pair into Montgomery form, the tree top its `top`-node
+    level once."""
+    top = min(n, top)
+    return (n - 1) * (perm + bn_wide()) + (2 * (n - top) + top) * bn_wide()
+
+
+def p254_row_products(c: int, perm: int = P254_PERM_MULS) -> int:
     """Montgomery products of one p254 row hash of `c` words: the
-    permutations, each felt's conversion into Montgomery form and the
-    digest's out of it."""
-    felts = max(1, -(-c // 8))
-    perms = -(-felts // 2)
-    return perms * (P254_PERM_MULS + 2) + 1
+    permutations (`perm` products each; the dense schedule's, the parent's
+    yardstick, by default), each felt's conversion into Montgomery form
+    and the digest's out of it."""
+    return p254_chain(c) * (perm + 2) + 1
+
+
+def p254_parent_wide(n: int, c: int) -> tuple:
+    """The parent's yardstick for the leaves of an n x c commit and for
+    the levels above them (the dense schedule, 3 conversions a pair hash),
+    in 32x32->64 products."""
+    return (n * p254_row_products(c) * bn_wide(),
+            (n - 1) * (P254_PERM_MULS + 3) * bn_wide())
+
+
+def p254_chain(c: int) -> int:
+    """Dependent permutations of one p254 row hash of `c` words."""
+    return -(-max(1, -(-c // 8)) // 2)
 
 
 def p254_sample(rng, n: int):
@@ -1844,32 +2061,50 @@ def check_p254_sampled(check, rng, fn, inp, got, what) -> int:
     return int(idx.shape[0])
 
 
-def phase_kernel_p254(dev, sm_clocks_per_s):
-    """The p254 sponge against its plain version (the Python-int hash) at
-    the identity proof's group widths: whole at 2^10 rows, sampled at the
-    wrap's 2^16 rows and on every level of a 2^16-leaf commit; timed."""
-    from boundless_tpu_torch.core import suites
+def phase_kernel_p254(dev, sm_clocks_per_s, lat):
+    """The p254 sponge against its plain version (the Python-int hash) in
+    every layout: whole at 2^10 rows (one thread and 3 lanes a hash), on
+    2^10 pairs, the tree top at every level size and every level of a
+    2^10-leaf commit; sampled at the wrap's 2^16 rows and on every level
+    of a 2^16-leaf commit (its tree top too); the path walk of P254_PATHS
+    opened paths of that commit, with a flipped and a refused sibling.
+    Timed: a one-pair launch, the 2^16 x 64 leaves, the levels above them
+    and the whole commit, each beside its throughput bound (this design's
+    work), the parent's (the dense schedule's work) and its latency
+    bound."""
+    from boundless_tpu_torch.core import merkle, suites
+    from boundless_tpu_torch.core import poseidon_bn254 as P254
     from boundless_tpu_torch.kernels import poseidon254 as P254K
 
     rng = np.random.default_rng(SEED + 7)
     check = Checker()
+    suite = suites.get("poseidon254")
     for c in P254_CHECK_COLS:
         x = rand_words(rng, (P254_CHECK_N, c), dev)
-        got = P254K.hash_rows(x)
         t0 = time.perf_counter()
         want = P254K.hash_rows(x.cpu())
         plain_s = time.perf_counter() - t0
-        check(got, want.to(dev), f"p254 rows {P254_CHECK_N}x{c}")
+        for g in (1, 3):
+            got = P254K._hash_rows(x, g)
+            check(got, want.to(dev), f"p254 rows {P254_CHECK_N}x{c} lanes{g}")
         if c == 64:
             plain_ms, x64 = plain_s * 1e3, x
     pairs = torch.cat([got, P254K.hash_rows(x64)], 1)  # 2^10 pairs
-    check(P254K.hash_level(pairs), P254K.hash_level(pairs.cpu()).to(dev),
-          f"p254 pairs {P254_CHECK_N}")
-    tree = suites.get("poseidon254").commit(x64)
-    want = [P254K.hash_rows(x64.cpu())]
-    while want[-1].shape[0] > 1:
-        want.append(P254K.hash_level(want[-1].view(-1, 16)))
-    for d, (g, w) in enumerate(zip(tree.levels, want)):
+    want = P254K.hash_level(pairs.cpu()).to(dev)
+    for g in (1, 3):
+        check(P254K._hash_level(pairs, g), want, f"p254 pairs {P254_CHECK_N} "
+              f"lanes{g}")
+    m = 2
+    while m <= P254K.TREE_TOP:  # the tree top at every level size
+        for d, (g, w) in enumerate(zip(P254K.hash_tree(want[:m]),
+                                       P254K.hash_tree(want[:m].cpu()))):
+            check(g, w.to(dev), f"p254 tree top {m} level {d}")
+        m *= 2
+    tree = suite.commit(x64)
+    ref = [P254K.hash_rows(x64.cpu())]
+    while ref[-1].shape[0] > 1:
+        ref.append(P254K.hash_level(ref[-1].view(-1, 16)))
+    for d, (g, w) in enumerate(zip(tree.levels, ref)):
         check(g, w.to(dev), f"p254 commit level {d}")
     n, c = P254_TIME_SHAPE
     sampled = {}
@@ -1881,13 +2116,13 @@ def phase_kernel_p254(dev, sm_clocks_per_s):
                 f"p254 rows {n}x{cols}")
             del y
     x = rand_words(rng, (n, c), dev)
-    ms = cuda_ms(lambda: P254K.hash_rows(x), 3)
-    bms, by = bn_bound_ms(4 * n * c + 32 * n, n * p254_row_products(c),
-                          sm_clocks_per_s)
-    leaves = P254K.hash_rows(x)  # the timed launch once more
+    leaves = P254K.hash_rows(x)
     sampled[f"{n}x{c}"] = check_p254_sampled(
         check, rng, P254K.hash_rows, x, leaves, f"p254 rows {n}x{c}")
-    tree = suites.get("poseidon254").commit(x)
+    sampled[f"{n}x{c}_lanes3"] = check_p254_sampled(
+        check, rng, P254K.hash_rows, x, P254K._hash_rows(x, 3),
+        f"p254 rows {n}x{c} lanes3")
+    tree = suite.commit(x)
     check(tree.levels[0], leaves, f"p254 commit {n} leaves")
     per_level = []
     for d in range(1, len(tree.levels)):
@@ -1895,34 +2130,99 @@ def phase_kernel_p254(dev, sm_clocks_per_s):
         per_level.append(check_p254_sampled(
             check, rng, P254K.hash_level, below, tree.levels[d],
             f"p254 commit {n} level {d}"))
-    levels_ms = cuda_ms(lambda: _p254_levels(leaves), 3)
-    tree_ms = cuda_ms(lambda: suites.get("poseidon254").commit(x), 2)
-    tree_bms, tree_by = bn_bound_ms(
-        4 * n * c + 32 * (2 * n - 1),
-        n * p254_row_products(c) + (n - 1) * (P254_PERM_MULS + 3),
-        sm_clocks_per_s)
+    # the path walk: every query's whole path in one launch
+    idx = torch.from_numpy(rng.choice(n, P254_PATHS, replace=False)).to(dev)
+    rows, paths = merkle.open_rows(tree, idx)
+    leaf = P254K.hash_rows(rows)
+    check(P254K.hash_paths(leaf, idx, paths),
+          P254K.hash_paths(leaf.cpu(), idx.cpu(), paths.cpu()).to(dev),
+          f"p254 path walk {P254_PATHS}x{paths.shape[1]}")
+    if not bool(suite.verify_rows(tree.root, idx, rows, paths).all()):
+        raise AssertionError("verify_rows refused the commit's own paths")
+    bad = paths.clone()
+    bad[3, 7, 0] ^= 1
+    if suite.verify_rows(tree.root, idx, rows, bad).tolist() != \
+            [i != 3 for i in range(P254_PATHS)]:
+        raise AssertionError("verify_rows missed a flipped sibling")
+    w = P254K.words_np(paths[5, 2])
+    big = sum(int(v) << (32 * k) for k, v in enumerate(w)) + P254.FR
+    bad = paths.clone()
+    bad[5, 2] = P254K.words_tensor(
+        [(big >> (32 * k)) & 0xFFFFFFFF for k in range(8)], dev)
+    try:
+        suite.verify_rows(tree.root, idx, rows, bad)
+        raise AssertionError("verify_rows took a sibling of x + r")
+    except ValueError:
+        pass
+    layouts = dict(P254K.LAUNCHES_BY_LAYOUT)
+    if min(layouts.values()) <= 0:
+        raise AssertionError(f"a p254 layout did not run: {layouts}")
+    # times: the host's cost hidden for the one-pair launch (device_ms)
+    pair = leaves[:2].reshape(1, 16)
+    pair_ms = device_ms(lambda: P254K.hash_level(pair, trusted=True), 20)
+    ms = cuda_ms(lambda: P254K.hash_rows(x), 3)
+    levels_ms = cuda_ms(lambda: p254_levels(leaves), 3)
+    tree_ms = cuda_ms(lambda: suite.commit(x), 2)
+    leaves_bytes = 4 * n * c + 32 * n
+    levels_bytes = 64 * (n - 1) + 32 * (n - 1)
+    leaves_wide = n * p254_row_wide(c)
+    levels_wide = p254_levels_wide(n, P254K.TREE_TOP)
+    bms, by = bn_bound_ms(leaves_bytes, leaves_wide, sm_clocks_per_s)
+    lv_bms, lv_by = bn_bound_ms(levels_bytes, levels_wide, sm_clocks_per_s)
+    tree_bms, tree_by = bn_bound_ms(leaves_bytes + 32 * (n - 1),
+                                    leaves_wide + levels_wide,
+                                    sm_clocks_per_s)
+    leaves_par, levels_par = p254_parent_wide(n, c)
+    bms_par = bn_bound_ms(leaves_bytes, leaves_par, sm_clocks_per_s)[0]
+    lv_bms_par = bn_bound_ms(levels_bytes, levels_par, sm_clocks_per_s)[0]
+    tree_bms_par = bn_bound_ms(leaves_bytes + 32 * (n - 1),
+                               leaves_par + levels_par, sm_clocks_per_s)[0]
+    depth = n.bit_length() - 1  # the levels: one permutation each
+    lat_ms = bn_latency_ms(p254_chain(c) * P254_PERM_DEPTH, lat)
+    products = n * p254_row_products(c, P254_PERM_PRODUCTS)
     say("kernel", kernel="p254_sponge", checked=check.checked,
-        check_rows=P254_CHECK_N, check_cols=",".join(map(str, P254_CHECK_COLS)),
+        check_rows=P254_CHECK_N,
+        check_cols=",".join(map(str, P254_CHECK_COLS)),
         sampled_rows=json.dumps(sampled).replace(" ", ""),
         commit_levels_checked=len(per_level),
         commit_nodes_checked_by_level=",".join(map(str, per_level)),
-        tolerance=0, max_abs_err=check.max_err, shape=f"{n}x{c}",
-        kernel_ms=f"{ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
-        tree_levels_ms=f"{levels_ms:.4f}", commit_ms=f"{tree_ms:.4f}",
-        commit_bound_ms=f"{tree_bms:.4f}", commit_bound_by=tree_by,
+        path_walk=f"{P254_PATHS}x{paths.shape[1]}", flipped="refused",
+        sibling_x_plus_r="raised",
+        layouts=json.dumps(layouts).replace(" ", ""),
+        tolerance=0, max_abs_err=check.max_err)
+    say("kernel", kernel="p254_sponge", lane_crossover=P254K.LANE_CROSSOVER,
+        tree_top=P254K.TREE_TOP, one_pair_ms=f"{pair_ms:.4f}",
+        one_pair_latency_bound_ms=f"{bn_latency_ms(P254_PERM_DEPTH, lat):.4f}",
+        shape=f"{n}x{c}", kernel_ms=f"{ms:.4f}", bound_ms=f"{bms:.4f}",
+        bound_by=by, bound_parent_ms=f"{bms_par:.4f}",
+        latency_bound_ms=f"{lat_ms:.4f}", products=products,
+        wide_products=leaves_wide, wide_products_parent=leaves_par,
+        tree_levels_ms=f"{levels_ms:.4f}",
+        tree_levels_bound_ms=f"{lv_bms:.4f}", tree_levels_bound_by=lv_by,
+        tree_levels_bound_parent_ms=f"{lv_bms_par:.4f}",
+        tree_levels_latency_bound_ms=
+        f"{bn_latency_ms(depth * P254_PERM_DEPTH, lat):.4f}",
+        commit_ms=f"{tree_ms:.4f}", commit_bound_ms=f"{tree_bms:.4f}",
+        commit_bound_by=tree_by, commit_bound_parent_ms=f"{tree_bms_par:.4f}",
+        commit_latency_bound_ms=
+        f"{bn_latency_ms((p254_chain(c) + depth) * P254_PERM_DEPTH, lat):.4f}",
         plain_ms_1024x64=f"{plain_ms:.4f}")
     return dict(max_abs_err=check.max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, shape=f"{n}x{c}",
-                plain_shape=f"{P254_CHECK_N}x64")
+                bound_ms=bms, bound_by=by, latency_bound_ms=lat_ms,
+                products=products, one_pair_ms=pair_ms, commit_ms=tree_ms,
+                shape=f"{n}x{c}", plain_shape=f"{P254_CHECK_N}x64")
 
 
-def _p254_levels(leaves):
+def p254_levels(leaves):
+    """The levels above a commit's leaves, as Poseidon254Suite.commit
+    forms them (one launch a level down to TREE_TOP nodes, then the tree
+    top in one)."""
     from boundless_tpu_torch.kernels import poseidon254 as P254K
 
     cur = leaves
-    while cur.shape[0] > 1:
-        cur = P254K.hash_level(cur.view(-1, 16))
-    return cur
+    while cur.shape[0] > P254K.TREE_TOP:
+        cur = P254K.hash_level(cur.view(-1, 16), trusted=True)
+    return P254K.hash_tree(cur)[-1]
 
 
 def multiples_of_g(n: int):
@@ -1972,23 +2272,59 @@ def affine_words(points) -> np.ndarray:
     return np.frombuffer(blob, dtype=np.uint32).reshape(-1, 16)
 
 
-def msm_products(pr) -> int:
-    """Montgomery products the kernel does on these inputs: a mixed
-    addition for each entry after a chunk's first, a Jacobian addition
-    for each chunk after a bucket's first, the windows' running sums
-    (2 x 255 additions each) and the 31 joins (8 doublings, 1 addition)."""
-    entries = pr.idx.shape[0]
-    chunks = pr.chunk_start.shape[0]
-    buckets = int((pr.bucket_chunks > 0).sum())
+def msm_products(scalars, dev) -> int:
+    """Montgomery products of the reference's schedule on these scalars
+    (boundless_tpu/groth16/msm_tpu.py: unsigned 8-bit digits in 32 x 255
+    buckets, a suffix sum a window), the parent's design and the yardstick
+    the `_parent` bound counts: a
+    mixed addition for each entry after a chunk's first (chunks of 32), a
+    Jacobian addition for each chunk after a bucket's first, the
+    windows' running sums (2 x 255 additions each) and the 31 joins (8
+    doublings, 1 addition)."""
+    from boundless_tpu_torch.groth16 import msm_device as MD
+
+    d = MD.digits(scalars, dev).to(torch.int64)
+    keys = (d + torch.arange(32, device=dev) * 256)[d != 0]
+    counts = torch.bincount(keys, minlength=32 * 256)
+    entries = int(counts.sum())
+    chunks = int(((counts + 31) // 32).sum())
+    buckets = int((counts > 0).sum())
     return ((entries - chunks) * MSM_MADD_MULS
             + (chunks - buckets) * MSM_ADD_MULS
             + 32 * 2 * 255 * MSM_ADD_MULS
             + 31 * (8 * MSM_DBL_MULS + MSM_ADD_MULS))
 
 
-def phase_kernel_msm(dev, sm_clocks_per_s):
-    """The CUDA MSM against its plain version, the host Pippenger and the
-    i*G identity, and timed."""
+def msm_products_new(pr) -> int:
+    """Montgomery products this design does on these inputs, which its
+    bound counts: the chunks' and buckets' additions as above, 32 x 7 bit
+    slices of 64 buckets (8 lanes of 7 additions, 3 butterfly steps on
+    each lane), each window's 7 doublings and additions, the 31 joins."""
+    entries = pr.idx.shape[0]
+    chunks = pr.chunk_start.shape[0]
+    buckets = int((pr.bucket_chunks > 0).sum())
+    return ((entries - chunks) * MSM_MADD_MULS
+            + (chunks - buckets) * MSM_ADD_MULS
+            + 32 * 7 * 8 * (7 + 3) * MSM_ADD_MULS
+            + 32 * 7 * (MSM_DBL_MULS + MSM_ADD_MULS)
+            + 31 * (8 * MSM_DBL_MULS + MSM_ADD_MULS))
+
+
+def msm_depth(pr) -> int:
+    """Dependent products on the MSM's longest chain: the longest chunk,
+    the bucket with the most chunks, a bit slice (8 additions and 3
+    butterfly steps), a window (7 doublings and additions) and the join
+    (31 x (8 doublings + 1 addition))."""
+    longest = int(pr.chunk_len.max()) if pr.chunk_len.numel() else 0
+    most = int(pr.bucket_chunks.max())
+    return ((longest + most + 11) * MSM_ADD_DEPTH
+            + 7 * (MSM_DBL_DEPTH + MSM_ADD_DEPTH)
+            + 31 * (8 * MSM_DBL_DEPTH + MSM_ADD_DEPTH))
+
+
+def phase_kernel_msm(dev, sm_clocks_per_s, lat):
+    """The CUDA MSM against its plain version, the host Pippenger (with
+    the signed digits' edge cases) and the i*G identity, and timed."""
     from boundless_tpu_torch.groth16 import limbs as LB
     from boundless_tpu_torch.groth16 import msm as HM
     from boundless_tpu_torch.groth16 import msm_device as MD
@@ -2014,6 +2350,12 @@ def phase_kernel_msm(dev, sm_clocks_per_s):
             out[11] = 1
             out[12] = out[13] = out[14] = 5
             out[20] = out[21]
+            # the signed digits' edges: r - 1, digits of exactly 128 and
+            # of -127, a scalar and its negation
+            out[15] = R - 1
+            out[16] = int.from_bytes(bytes([0x80] * 31), "little")
+            out[17] = int.from_bytes(bytes([0x81] * 31), "little")
+            out[18] = R - out[19]
         return out
 
     # the plain torch version at 2^10 (edge cases: an infinity point, a
@@ -2039,20 +2381,25 @@ def phase_kernel_msm(dev, sm_clocks_per_s):
     check.max_err = max(check.max_err, err)
     if err:
         raise AssertionError("MSM kernel differs from its plain version")
-    # the host Pippenger at 2^12, with random points and the edge cases
+    # the host Pippenger at 2^12, with random points and the edge cases:
+    # a point and its negation under one scalar (P + -P in a bucket), a
+    # point twice under opposite scalars (P and P through both signs)
     n = MSM_HOST_N
     g = G1.generator()
     hp = [g.mul(int(k)) for k in rng.integers(1, 1 << 40, size=n)]
     hp[20] = G1.infinity()
     hp[40] = hp[41].neg()
     hp[50] = hp[51]
+    hp[60] = hp[61]
     hs = scalars_of(n, True)
-    hs[40], hs[50] = hs[41], hs[51]
+    hs[40], hs[50], hs[60] = hs[41], hs[51], R - hs[61]
     got = MD.msm(hp, hs, dev)
     if not got.eq(HM.msm_pippenger(hp, hs)):
         raise AssertionError("MSM kernel differs from the host Pippenger")
-    check.checked += 2
-    # i*G at large n: sum_i s_i (i G) = (sum_i i s_i mod r) G
+    if not MD.msm([g, g], [1, R - 1], dev).is_infinity():
+        raise AssertionError("MSM kernel: G + (r - 1) G is not infinity")
+    check.checked += 3
+    # i*G: sum_i s_i (i G) = (sum_i i s_i mod r) G
     times = {}
     for n in MSM_TIME_N:
         sc = scalars_of(n, False)
@@ -2064,21 +2411,28 @@ def phase_kernel_msm(dev, sm_clocks_per_s):
             raise AssertionError(f"MSM kernel: the i*G check fails at n={n}")
         check.checked += 1
         ms = cuda_ms(lambda: MK.pippenger(pts, pr), 3)
-        bms, by = bn_bound_ms(64 * n + 32 * n + 96, msm_products(pr),
-                              sm_clocks_per_s)
-        times[n] = (ms, bms, by)
+        nbytes = 64 * n + 32 * n + 96
+        products, parent = msm_products_new(pr), msm_products(sc, dev)
+        bms, by = bn_bound_ms(nbytes, products * bn_wide(), sm_clocks_per_s)
+        bms_par = bn_bound_ms(nbytes, parent * bn_wide(), sm_clocks_per_s)[0]
+        lat_ms = bn_latency_ms(msm_depth(pr), lat)
+        times[n] = (ms, bms, by, lat_ms, products)
         say("kernel", kernel="bn254_msm", n=n, entries=pr.idx.shape[0],
             chunks=pr.chunk_start.shape[0], i_times_g="equal",
-            kernel_ms=f"{ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+            kernel_ms=f"{ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+            bound_parent_ms=f"{bms_par:.4f}",
+            latency_bound_ms=f"{lat_ms:.4f}", products=products,
+            products_parent=parent)
     n = max(MSM_TIME_N)
-    ms, bms, by = times[n]
+    ms, bms, by, lat_ms, products = times[n]
     say("kernel", kernel="bn254_msm", checked=check.checked, tolerance=0,
         max_abs_err=check.max_err, plain_n=MSM_PLAIN_N,
         plain_ms=f"{plain_ms:.4f}", host_pippenger_n=MSM_HOST_N,
         host_points_s=f"{gen_s:.3f}")
     return dict(max_abs_err=check.max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, shape=f"{n} points",
-                plain_shape=f"{MSM_PLAIN_N} points")
+                bound_ms=bms, bound_by=by, latency_bound_ms=lat_ms,
+                products=products, ms_497=times[497][0],
+                shape=f"{n} points", plain_shape=f"{MSM_PLAIN_N} points")
 
 
 def merkle_circuit(depth: int, rng):
@@ -2149,24 +2503,19 @@ def phase_groth16(dev):
     return launches
 
 
-def phase_wrap(dev):
-    """The JAX CI wrap chain (tests/test_groth16_wrap.py:20-44) on the
-    card: echo session -> lift -> finalize -> identity_p254 -> R1CS wrap
-    circuit -> Groth16 -> pairing-only verify; the EVM seal round-trip;
-    tampers refused."""
-    from boundless_tpu_torch.groth16 import evm, wrap
-    from boundless_tpu_torch.kernels import poseidon254 as P254K
+def ci_session(dev):
+    """The JAX CI wrap chain's session receipt on the card
+    (tests/test_groth16_wrap.py:20-44): echo guest words([1, 7]), seg po2
+    6, q2 / fri_min 16 / rate 1/2, rec_po2 17, both lift variants ->
+    (recursion system, session, its build s, segment proof and lift s)."""
     from boundless_tpu_torch.prover import stark
-    from boundless_tpu_torch.recursion import identity, succinct
+    from boundless_tpu_torch.recursion import succinct
     from boundless_tpu_torch.zkvm import guests, paging, prove
     from boundless_tpu_torch.zkvm.executor import Executor
 
     ps = stark.ProofSystem(queries=2, fri_min_degree=16, commit_expand=2)
     params = succinct.SuccinctParams(seg_po2=6, seg_ps=ps, rec_po2=17,
                                      rec_ps=ps, variants=("rv32im", "rv32i"))
-    zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t_all = time.perf_counter()
     image = guests.echo()
     res = Executor(image, guests.words([1, 7]), segment_po2=6).run()
     if len(res.segments) != 1:
@@ -2185,6 +2534,22 @@ def phase_wrap(dev):
              for i in range(0, len(res.journal), 4)]
     session = succinct.finalize_session(root, words, image.entry,
                                         paging.image_root(image))
+    return system, session, t_system, t_lift
+
+
+def phase_wrap(dev):
+    """The JAX CI wrap chain (tests/test_groth16_wrap.py:20-44) on the
+    card: echo session -> lift -> finalize -> identity_p254 -> R1CS wrap
+    circuit -> Groth16 -> pairing-only verify; the EVM seal round-trip;
+    tampers refused."""
+    from boundless_tpu_torch.groth16 import evm, wrap
+    from boundless_tpu_torch.kernels import poseidon254 as P254K
+    from boundless_tpu_torch.recursion import identity
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    system, session, t_system, t_lift = ci_session(dev)
     t0 = time.perf_counter()
     p254 = identity.get_p254(system)
     t_p254 = time.perf_counter() - t0
@@ -2196,6 +2561,9 @@ def phase_wrap(dev):
     launches = all_counts()
     if launches["p254_sponge"] <= 0:
         raise AssertionError("identity_p254 launched no p254 sponge kernel")
+    layouts = dict(P254K.LAUNCHES_BY_LAYOUT)
+    if min(layouts.values()) <= 0:  # the shrink runs every layout
+        raise AssertionError(f"a p254 layout did not run: {layouts}")
     t0 = time.perf_counter()
     ok = wrap.verify(receipt, system=system)
     t_verify = time.perf_counter() - t0
@@ -2234,7 +2602,8 @@ def phase_wrap(dev):
         witness_s=f"{sec['witness']:.3f}",
         native_eval_s=f"{sec['native_eval']:.3f}",
         prove_s=f"{sec['prove']:.3f}", verify_s=f"{sec['verify']:.3f}",
-        p254_sponge_launches_shrink_and_verify=shrink_launches)
+        p254_sponge_launches_shrink_and_verify=shrink_launches,
+        p254_layouts=json.dumps(layouts).replace(" ", ""))
     say("wrap", stage="groth16", prover_mode=wk.mode, r1cs_rows=wk.n_rows,
         r1cs_variables=wk.n_vars,
         r1cs_layout_s=f"{wk.seconds['r1cs_layout']:.3f}",
@@ -2294,9 +2663,9 @@ def main():
     phase_coproc_kernels(dev, sm_clocks_per_s, lat)
     coproc_launches = phase_coproc(dev, cons_check)
     stats["p254_sponge"] = timed_phase("p254", lambda: phase_kernel_p254(
-        dev, sm_clocks_per_s))
+        dev, sm_clocks_per_s, lat))
     stats["bn254_msm"] = timed_phase("msm", lambda: phase_kernel_msm(
-        dev, sm_clocks_per_s))
+        dev, sm_clocks_per_s, lat))
     g16_launches = timed_phase("groth16", lambda: phase_groth16(dev))
     wrap_launches = timed_phase("wrap", lambda: phase_wrap(dev))
     # each kernel's launches on its own path: the main path for the

@@ -22,6 +22,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __constant__
 #define __shared__ static
 #define __restrict__
@@ -68,6 +69,9 @@ inline unsigned __shfl_xor_sync(unsigned, unsigned v, int mask) {
   return emu_exchange(v, mask, true);
 }
 inline void __syncthreads() { emu_block->arrive_and_wait(); }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
 template <class T>
 T __ldg(const T* p) {

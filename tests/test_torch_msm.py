@@ -5,9 +5,11 @@ Pippenger and the CUDA source, against the host curve and the JAX package.
 `msm_device.ec_add`/`ec_double` against `bn254.G1` on the cases of
 `tests/test_msm_tpu.py:18-37`; the plain MSM (`msm_device.msm` on the
 CPU) against `msm.msm_naive` and the JAX package's host `msm_pippenger` at
-n = 70 with the edge cases of `test_msm_tpu.py:55-70`; the prep's bucket
-and chunk layout; `csrc/msm.cu` built by g++ against `tests/cuda_emu.h`
-(emulated threads) against the host Pippenger. A `cuda`-marked case holds
+n = 70 with the edge cases of `test_msm_tpu.py:55-70`; the prep's signed
+digits (every scalar recomposed exactly, window 31 never carrying out),
+bucket and chunk layout; `csrc/msm.cu` built by g++ against
+`tests/cuda_emu.h` (emulated threads: chunks, buckets, bit slices,
+windows) against the host Pippenger, with the signed digits' edge cases. A `cuda`-marked case holds
 the kernel to its plain version on the card and skips here. Tolerance 0.
 """
 
@@ -139,7 +141,7 @@ def test_prep_buckets_and_chunks():
     points, scalars = edge_case_msm()
     scalars = scalars + [7] * 100  # one bucket of 100 entries: 4 chunks
     pr = MD.prep(scalars, "cpu")
-    digits = MD.digits(scalars, "cpu").to(torch.int64)
+    digits = MD.signed_digits(scalars, "cpu")
     assert pr.idx.shape[0] == int((digits != 0).sum())
     assert int(pr.chunk_len.max()) <= MD.CHUNK
     assert int(pr.chunk_len.min()) >= 1
@@ -150,12 +152,41 @@ def test_prep_buckets_and_chunks():
         counts[b] = int(pr.chunk_len[c0: c0 + k].sum())
         for c in range(c0, c0 + k):  # every entry of the chunk is in b
             s, n = int(pr.chunk_start[c]), int(pr.chunk_len[c])
-            for i in pr.idx[s: s + n].tolist():
-                assert digits[i, b // MD.BUCKETS] == b % MD.BUCKETS
-    want = torch.bincount((digits + torch.arange(MD.WINDOWS) * MD.BUCKETS)
-                          [digits != 0], minlength=MD.WINDOWS * MD.BUCKETS)
+            for e in pr.idx[s: s + n].tolist():
+                d = int(digits[~e if e < 0 else e, b // MD.BUCKETS])
+                assert abs(d) == b % MD.BUCKETS + 1 and (d < 0) == (e < 0)
+    mag = digits.abs()
+    want = torch.bincount((mag - 1 + torch.arange(MD.WINDOWS) * MD.BUCKETS)
+                          [mag != 0], minlength=MD.WINDOWS * MD.BUCKETS)
     assert torch.equal(counts, want)
-    assert int(pr.bucket_chunks[7]) == 4  # window 0, digit 7
+    assert int(pr.bucket_chunks[6]) == 4  # window 0, |digit| 7
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_signed_digits_recompose_every_scalar(seed):
+    """d_w in [-127, 128], sum_w d_w 256^w = s mod r, and window 31 never
+    carries out (r's top byte is 0x30): no 33rd window."""
+    rng = random.Random(200 + seed)
+    top = [R - 1, R - 2, R, R + 1, 0, 1, 0x80, 0x81, (1 << 253) - 1,
+           int.from_bytes(bytes([0x80] * 31), "little"),
+           int.from_bytes(bytes([0xFF] * 31) + b"\x30", "little") % R]
+    scalars = top + [rng.randrange(R) for _ in range(200)]
+    d = MD.signed_digits(scalars, "cpu")
+    assert d.shape == (len(scalars), MD.WINDOWS)
+    assert int(d.min()) >= -127 and int(d.max()) <= 128
+    assert int(d[:, -1].min()) >= 0  # window 31 takes a carry, makes none
+    for s, row in zip(scalars, d.tolist()):
+        assert sum(v << (8 * w) for w, v in enumerate(row)) == s % R
+    assert 128 in d[9].tolist() and -127 in d[top.index(0x81)].tolist()
+
+
+def test_chunk_length_grows_with_the_entries():
+    assert MD.chunk_for(0) == MD.chunk_for(500 * 32) == MD.CHUNK
+    big = (1 << 20) * MD.WINDOWS
+    c = MD.chunk_for(big)
+    assert c > MD.CHUNK
+    mean = -(-big // (MD.WINDOWS * MD.BUCKETS))
+    assert -(-mean // c) <= MD.BUCKET_CHUNKS
 
 
 # -- the plain MSM ------------------------------------------------------------
@@ -205,8 +236,9 @@ def emulated(tmp_path_factory):
     lib = cuda_emu_build.build("msm.cu", tmp_path_factory.mktemp("emumsm"))
     vp = ctypes.c_void_p
     lib.bt_msm_run.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp, vp, vp,
-                               vp, vp, vp]
+                               vp, vp, vp, vp]
     lib.bt_msm_buckets.restype = ctypes.c_int
+    lib.bt_msm_slices.restype = ctypes.c_int
     return lib
 
 
@@ -219,12 +251,13 @@ def run_emulated(lib, points, scalars):
     chunks = arrs[1].shape[0]
     partial = np.zeros((max(chunks, 1), 24), np.uint32)
     buckets = np.zeros((lib.bt_msm_buckets(), 24), np.uint32)
+    slices = np.zeros((lib.bt_msm_slices(), 24), np.uint32)
     out = np.zeros(24, np.uint32)
     assert lib.bt_msm_run(pts.ctypes.data, arrs[0].ctypes.data,
                           arrs[1].ctypes.data, arrs[2].ctypes.data, chunks,
                           arrs[3].ctypes.data, arrs[4].ctypes.data,
                           partial.ctypes.data, buckets.ctypes.data,
-                          out.ctypes.data, None) == 0
+                          slices.ctypes.data, out.ctypes.data, None) == 0
     return MD.point_from_words(out)
 
 
@@ -242,6 +275,27 @@ def test_cuda_source_edge_cases_on_emulated_threads(emulated):
     assert run_emulated(emulated, [g, G1.infinity()], [0, 5]).is_infinity()
     assert run_emulated(emulated, [g, g.neg()], [9, 9]).is_infinity()
     assert run_emulated(emulated, [g, g], [3, 3]).eq(g.mul(6))
+
+
+def test_cuda_source_signed_digit_edge_cases_on_emulated_threads(emulated):
+    """Scalars 0, 1 and r - 1, digits of exactly 128 and -127, a point and
+    its negation in one bucket (P + -P: infinity), P and P in one bucket
+    through opposite signs (a doubling), the point at infinity."""
+    rng = random.Random(9)
+    g = G1.generator()
+    points = [g.mul(rng.randrange(1, 10**6)) for _ in range(24)]
+    scalars = [rng.randrange(R) for _ in range(24)]
+    scalars[0], scalars[1], scalars[2] = 0, 1, R - 1
+    scalars[3] = int.from_bytes(bytes([0x80] * 31), "little")
+    scalars[4] = int.from_bytes(bytes([0x81] * 31), "little")
+    points[5] = G1.infinity()
+    points[6], scalars[6] = points[7].neg(), scalars[7]
+    points[8], scalars[8] = points[9], R - scalars[9]
+    points[10], scalars[10] = points[11], scalars[11]
+    assert run_emulated(emulated, points, scalars).eq(
+        HM.msm_pippenger(points, scalars))
+    assert run_emulated(emulated, [g, g], [1, R - 1]).is_infinity()
+    assert run_emulated(emulated, [g] * 3, [0x80] * 3).eq(g.mul(3 * 0x80))
 
 
 # -- on the card -------------------------------------------------------------

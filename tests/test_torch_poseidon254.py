@@ -2,15 +2,16 @@
 
 Poseidon over BN254 Fr (`core/poseidon_bn254.py`), the `poseidon254`
 suite's Merkle trees and `Transcript254` (`core/suites.py`), the sponge
-kernel's CPU route (`kernels/poseidon254.py`) and the CUDA source itself
-(`csrc/poseidon254.cu`, built by g++ against `tests/cuda_emu.h`), and the
-p254-suite toy proof of `tests/test_suite254.py` (ProdAir, n = 32, 4
+kernel's CPU route (`kernels/poseidon254.py`), the kernel's sparse-matrix
+schedule in Python ints (`permute_schedule`, `schedule_table`) and the CUDA
+source itself (`csrc/poseidon254.cu`, built by g++ against
+`tests/cuda_emu.h`, in every layout: one thread, 3 lanes, the tree top and
+the path walk), and the p254-suite toy proof of `tests/test_suite254.py` (ProdAir, n = 32, 4
 queries) proved by both packages. Tolerance 0 everywhere: exact field
 arithmetic. A `cuda`-marked case holds the kernel to its plain version on
 the card and skips here.
 """
 
-import ctypes
 import dataclasses
 import os
 import sys
@@ -114,6 +115,27 @@ def test_permutation_equals_jax(seed):
     assert P254.permute(s) == JP254.permute(s)
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_sparse_schedule_equals_jax_permutation(seed):
+    """The kernel's schedule (constants moved to one scalar a partial
+    round, sparse partial-round matrices, the lazy MDS's one reduction a
+    row) in Python ints equals the reference permutation."""
+    s = felts(3, 300 + seed)
+    if seed == 0:
+        s = [0, 0, 0]
+    elif seed == 1:
+        s = [P254.FR - 1] * 3
+    assert P254K.permute_schedule(s) == JP254.permute(s)
+
+
+def test_sparse_schedule_shape():
+    sc = P254K.schedule()
+    assert len(sc["full_rc"]) == 8 and len(sc["k"]) == 57
+    assert sc["k"][-1] == 0  # nothing moves into the last partial round
+    for m in sc["sparse"]:
+        assert m[1][1:] == [1, 0] and m[2][1:] == [0, 1]
+
+
 @pytest.mark.parametrize("count", [0, 1, 7, 8, 9, 16, 17, 48])
 def test_pack_and_hash_bb_equal_jax(count):
     elems = [int(x) for x in canon(count, count)]
@@ -165,12 +187,17 @@ def test_digest_words_keep_their_bit_patterns():
 
 
 def test_constant_tables_are_montgomery_felts():
-    rc, md = P254K.constant_tables()
-    rcs, mds = P254.constants()
+    """The kernel's table holds the schedule's constants in Montgomery
+    form (R = 2^256), in csrc/poseidon254.cu's TAB_* order."""
+    sc = P254K.schedule()
+    flat = ([v for row in sc["full_rc"] for v in row] + list(sc["post"])
+            + list(sc["k"]) + [v for row in sc["mds"] for v in row]
+            + [v for row in sc["pre"] for v in row]
+            + [v for m in sc["sparse"] for row in m for v in row])
+    table = P254K.schedule_table().reshape(-1, 8)
+    assert table.shape[0] == len(flat) == 615
     r_inv = pow(1 << 256, -1, P254.FR)
-    flat = [v for row in rcs for v in row] + [v for row in mds for v in row]
-    words = np.concatenate([rc, md]).reshape(-1, 8)
-    for v, w in zip(flat, words):
+    for v, w in zip(flat, table):
         x = sum(int(w[k]) << (32 * k) for k in range(8))
         assert x < P254.FR and x * r_inv % P254.FR == v
 
@@ -375,33 +402,100 @@ def test_toy_proof_tampers_and_the_other_suite_are_refused(toy_proofs):
 def emulated(tmp_path_factory):
     lib = cuda_emu_build.build("poseidon254.cu",
                                tmp_path_factory.mktemp("emu254"))
-    vp = ctypes.c_void_p
-    lib.bt_p254_set_constants.argtypes = [vp, vp]
-    lib.bt_p254_rows.argtypes = [vp, ctypes.c_longlong, ctypes.c_int, vp, vp]
-    lib.bt_p254_pairs.argtypes = [vp, ctypes.c_longlong, vp, vp]
-    rc, md = P254K.constant_tables()
-    assert lib.bt_p254_set_constants(rc.ctypes.data, md.ctypes.data) == 0
+    P254K.bind(lib)
+    table = P254K.schedule_table()
+    assert lib.bt_p254_table_words() == table.size
+    assert lib.bt_p254_tree_top() == P254K.TREE_TOP
+    assert lib.bt_p254_set_constants(table.ctypes.data) == 0
     return lib
+
+
+def emulated_rows(lib, c, lanes):
+    n, cols = c.shape
+    mont = np.ascontiguousarray(F.mont_np(c).astype(np.uint32))
+    out = np.zeros((n, 8), dtype=np.uint32)
+    assert lib.bt_p254_rows(mont.ctypes.data if cols else None, n, cols,
+                            lanes, out.ctypes.data, None) == 0
+    return out
 
 
 @pytest.mark.parametrize("n,cols", [(64, 48), (64, 64), (3, 0), (5, 1),
                                     (7, 17), (4, 24), (4, 16)])
 def test_cuda_source_rows_on_emulated_threads(emulated, n, cols):
     c = canon((n, cols), 100 + cols)
-    mont = np.ascontiguousarray(F.mont_np(c).astype(np.uint32))
-    out = np.zeros((n, 8), dtype=np.uint32)
-    assert emulated.bt_p254_rows(mont.ctypes.data if cols else None, n, cols,
-                                 out.ctypes.data, None) == 0
-    np.testing.assert_array_equal(out, P254.hash_rows_np(c.astype(np.uint32)))
+    np.testing.assert_array_equal(emulated_rows(emulated, c, 1),
+                                  P254.hash_rows_np(c.astype(np.uint32)))
+
+
+# 13 rows leave the second warp's groups mostly idle; 45 rows end in a
+# second, ragged block (40 hashes a block of 128 threads); 130 rows at one
+# thread a hash end in a ragged second block too.
+@pytest.mark.parametrize("lanes,n,cols", [(3, 13, 17), (3, 3, 0),
+                                          (3, 45, 48), (3, 1, 64),
+                                          (1, 130, 9)])
+def test_cuda_source_rows_in_each_layout_on_emulated_threads(
+        emulated, lanes, n, cols):
+    c = canon((n, cols), 200 + n + cols)
+    np.testing.assert_array_equal(emulated_rows(emulated, c, lanes),
+                                  P254.hash_rows_np(c.astype(np.uint32)))
 
 
 def test_cuda_source_pairs_on_emulated_threads(emulated):
     d = P254.hash_rows_np(canon((64, 3), 5).astype(np.uint32))
     inp = np.ascontiguousarray(d.reshape(32, 16))
     out = np.zeros((32, 8), dtype=np.uint32)
-    assert emulated.bt_p254_pairs(inp.ctypes.data, 32, out.ctypes.data,
+    assert emulated.bt_p254_pairs(inp.ctypes.data, 32, 1, out.ctypes.data,
                                   None) == 0
     np.testing.assert_array_equal(out, P254.hash_pairs_np(d[0::2], d[1::2]))
+
+
+@pytest.mark.parametrize("m", [1, 11, 23])
+def test_cuda_source_pairs_in_lanes_on_emulated_threads(emulated, m):
+    d = P254.hash_rows_np(canon((2 * m, 3), 50 + m).astype(np.uint32))
+    inp = np.ascontiguousarray(d.reshape(m, 16))
+    out = np.zeros((m, 8), dtype=np.uint32)
+    assert emulated.bt_p254_pairs(inp.ctypes.data, m, 3, out.ctypes.data,
+                                  None) == 0
+    np.testing.assert_array_equal(out, P254.hash_pairs_np(d[0::2], d[1::2]))
+
+
+@pytest.mark.parametrize("m", [2, 8, P254K.TREE_TOP])
+def test_cuda_source_tree_top_on_emulated_threads(emulated, m):
+    level = np.ascontiguousarray(
+        P254.hash_rows_np(canon((m, 2), 60 + m).astype(np.uint32)))
+    out = np.zeros((m - 1, 8), dtype=np.uint32)
+    assert emulated.bt_p254_tree(level.ctypes.data, m, out.ctypes.data,
+                                 None) == 0
+    want, cur = [], level
+    while cur.shape[0] > 1:
+        cur = P254.hash_pairs_np(cur[0::2], cur[1::2])
+        want.append(cur)
+    np.testing.assert_array_equal(out, np.concatenate(want))
+    assert emulated.bt_p254_tree(level.ctypes.data, 3, out.ctypes.data,
+                                 None) != 0  # not a power of two
+
+
+def test_cuda_source_path_walk_on_emulated_threads(emulated):
+    """Eleven opened paths of a 16-leaf tree (a ragged second warp), each
+    walked to the root in one launch, against hash_paths' CPU route."""
+    m = F.fp(canon((16, 3), 70))
+    tree = suites.get("poseidon254").commit(m)
+    from boundless_tpu_torch.core import merkle
+
+    idx = torch.tensor([0, 1, 2, 5, 6, 9, 10, 11, 14, 15, 7],
+                       dtype=torch.int64)
+    rows, paths = merkle.open_rows(tree, idx)
+    leaves = P254K.hash_rows(rows)
+    want = P254K.words_np(P254K.hash_paths(leaves, idx, paths))
+    assert (want == P254K.words_np(tree.root)[None]).all()
+    lv = np.ascontiguousarray(P254K.words_np(leaves))
+    sib = np.ascontiguousarray(P254K.words_np(paths))
+    ix = np.ascontiguousarray(idx.numpy())
+    out = np.zeros((11, 8), dtype=np.uint32)
+    assert emulated.bt_p254_paths(lv.ctypes.data, ix.ctypes.data,
+                                  sib.ctypes.data, 11, 4, out.ctypes.data,
+                                  None) == 0
+    np.testing.assert_array_equal(out, want)
 
 
 # -- on the card -------------------------------------------------------------
