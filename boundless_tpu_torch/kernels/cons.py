@@ -62,6 +62,7 @@ the kernel or raises. `LAUNCHES` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -72,6 +73,10 @@ from ..core.ntt import INV_RATE
 from . import build
 
 LAUNCHES = 0
+# One launch at a time: a launch copies its α weights and publics to the
+# library's __constant__ memory on the stream and then launches, so two
+# threads (cluster workers) must not interleave their copies.
+_LAUNCH_LOCK = threading.Lock()
 OP_BUDGET = 1500  # arithmetic nodes per generated device function
 TR = 32  # grid rows a block
 WARPS = 2  # warps a block: each computes a share of the chunks on the tile
@@ -556,14 +561,15 @@ def launch(air, ctrl_evals, data_evals, accum_evals, pubvec, weights, sels):
     lib = _lib(air, prog)
     out = torch.empty((len(sels), m, F.EXT_DEGREE), dtype=F.I32,
                       device=data_evals.device)
-    with torch.cuda.device(data_evals.device):
+    with _LAUNCH_LOCK, torch.cuda.device(data_evals.device):
         stream = torch.cuda.current_stream(data_evals.device).cuda_stream
         rc = lib.bt_cons_fused(ctrl_evals.data_ptr(), data_evals.data_ptr(),
                                accum_evals.data_ptr(), pubvec.data_ptr(),
                                weights.data_ptr(), out.data_ptr(), m,
                                sels[0], sels[1] if len(sels) > 1 else 0,
                                stream)
-    if rc != 0:
-        raise RuntimeError(f"constraint kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        if rc != 0:
+            raise RuntimeError(
+                f"constraint kernel launch failed: CUDA error {rc}")
+        LAUNCHES += 1
     return list(out.unbind(0))

@@ -14,12 +14,14 @@ plain or the host MSM.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from . import build
 
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()  # cluster workers launch from threads
 
 
 def _lib():
@@ -82,5 +84,6 @@ def pippenger(points: torch.Tensor, prep) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"MSM launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ from ..core import ntt as NTT
 from . import build
 
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()  # cluster workers launch from threads
 MAX_LOG_M = 10  # csrc/ntt.cu MAX_LOG_M
 MAX_M = 1 << MAX_LOG_M
 LOG_R = 5  # csrc/ntt.cu LOG_R: elements a thread in registers
@@ -199,5 +201,6 @@ def sub_ntt(x, forward: bool, mid=None, *, m=None, inner=None, load=None,
                             ptr(mid), inner, n2, *map(ptr, tables), stream)
     if rc != 0:
         raise RuntimeError(f"NTT sub-transform launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -24,6 +24,7 @@ above a level of at most `tree_max()` nodes in one launch of one block
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -47,6 +48,7 @@ TREE_TOP = 1 << 7
 
 LAUNCHES = 0
 LAUNCHES_BY_LAYOUT = {f"lanes{g}": 0 for g in LANES} | {"tree_top": 0}
+_COUNT_LOCK = threading.Lock()  # cluster workers launch from threads
 
 _READY_DEVICES: set = set()
 
@@ -103,8 +105,9 @@ def lanes_for(n: int) -> int:
 
 def _count(layout: str):
     global LAUNCHES
-    LAUNCHES += 1
-    LAUNCHES_BY_LAYOUT[layout] += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_LAYOUT[layout] += 1
 
 
 def _sponge(matrix, init, out_words: int, lanes=None):

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -45,6 +46,7 @@ from . import build
 
 LAUNCHES = 0
 LAUNCHES_BY_LAYOUT = {"lanes1": 0, "lanes3": 0, "tree_top": 0, "paths": 0}
+_COUNT_LOCK = threading.Lock()  # cluster workers launch from threads
 # Launches of this many rows or more take one thread a hash, smaller ones
 # 3 lanes a hash (tools/bn254_profile.py --sweep).
 LANE_CROSSOVER = 1 << 14
@@ -259,8 +261,9 @@ def _launch(call, device: torch.device, layout: str):
         err = call(lib, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"p254 sponge launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    LAUNCHES_BY_LAYOUT[layout] += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_LAYOUT[layout] += 1
 
 
 def hash_rows(matrix):

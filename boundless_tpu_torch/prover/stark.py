@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -194,16 +195,21 @@ def _combine_pointwise(cons, sizes, apows, keep=None):
 SPLIT_MIN_ROWS = 4096
 
 
+_DEGREES_LOCK = threading.Lock()  # proofs run in the cluster's threads
+
+
 def _item_degrees(air, pub):
     """Per-constraint-item degree bounds and the zk class list (cached)."""
-    if "_item_degrees" not in air.__dict__:
-        from ..air.dsl import constraint_degrees
+    with _DEGREES_LOCK:
+        if "_item_degrees" not in air.__dict__:
+            from ..air.dsl import constraint_degrees
 
-        air.__dict__["_item_degrees"] = [
-            int(np.max(np.atleast_1d(d))) for d in constraint_degrees(air, pub)]
-        air.__dict__["_zclass_cache"] = list(getattr(air, "_zclass", [])) \
-            or None
-    return air.__dict__["_item_degrees"], air.__dict__["_zclass_cache"]
+            air.__dict__["_item_degrees"] = [
+                int(np.max(np.atleast_1d(d)))
+                for d in constraint_degrees(air, pub)]
+            air.__dict__["_zclass_cache"] = \
+                list(getattr(air, "_zclass", [])) or None
+        return air.__dict__["_item_degrees"], air.__dict__["_zclass_cache"]
 
 
 def _cons_plan(air, pub, po2: int):

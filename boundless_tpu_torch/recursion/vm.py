@@ -48,6 +48,7 @@ a duplex-sponge transcript persists across interleaved arithmetic.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -614,6 +615,7 @@ def _native_pack(prog: Prog):
 
 
 NATIVE_EVALS = 0  # data traces computed by the C++ evaluator
+_EVALS_LOCK = threading.Lock()  # cluster workers evaluate from threads
 
 
 def evaluate_native(prog: Prog, inputs, pub_vals) -> np.ndarray:
@@ -645,7 +647,8 @@ def evaluate_native(prog: Prog, inputs, pub_vals) -> np.ndarray:
                          cp(mu), cp(data), err, ctypes.c_int(256))
     if rc != 0:
         raise EvalError(err.value.decode() or "native evaluation failed")
-    NATIVE_EVALS += 1
+    with _EVALS_LOCK:
+        NATIVE_EVALS += 1
     return data
 
 

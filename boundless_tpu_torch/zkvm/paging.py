@@ -18,6 +18,7 @@ Tree shape (normative for the lift circuit):
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 from ..core import poseidon2_np as NP
@@ -53,16 +54,20 @@ def page_hash(words: Sequence[int]) -> Digest:
 
 
 class _ZeroLineage:
-    """zero[d] = root of an all-zero-memory subtree of height d."""
+    """zero[d] = root of an all-zero-memory subtree of height d. The
+    cluster's worker threads fill it under a lock: two threads extending
+    it at once would append one level twice."""
 
     def __init__(self):
         self._cache = [page_hash([0] * PAGE_WORDS)]
+        self._lock = threading.Lock()
 
     def __getitem__(self, d: int) -> Digest:
-        while len(self._cache) <= d:
-            h = self._cache[-1]
-            self._cache.append(_hash_pair(h, h))
-        return self._cache[d]
+        with self._lock:
+            while len(self._cache) <= d:
+                h = self._cache[-1]
+                self._cache.append(_hash_pair(h, h))
+            return self._cache[d]
 
 
 ZERO = _ZeroLineage()

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
@@ -36,6 +37,8 @@ _AIRS = {"rv32im": Rv32imAir(), "rv32i": Rv32imAir(False)}
 
 NATIVE_WITNESSES = 0
 REPLAY_WITNESSES = 0
+# the cluster's worker threads share the counters and the image cache
+_LOCK = threading.Lock()
 
 
 def _device(device) -> torch.device:
@@ -79,11 +82,14 @@ def _image_ctrl(image: MemoryImage, po2: int, ps: stark.ProofSystem,
     """(ctrl trace tensor, canonical image id) for a program, cached."""
     device = _device(device)
     key = (image.image_id(), po2, ps.commit_expand, str(device))
-    if key not in _IMAGE_CTRL_CACHE:
-        ctrl = F.fp(witness.build_ctrl_trace(image, po2), device)
-        root = stark.control_root_of(_AIRS["rv32im"], po2, ctrl, ps)
-        _IMAGE_CTRL_CACHE[key] = (ctrl, F.from_mont(root).cpu().numpy())
-    return _IMAGE_CTRL_CACHE[key]
+    with _LOCK:
+        if key not in _IMAGE_CTRL_CACHE:
+            ctrl = F.fp(witness.build_ctrl_trace(image, po2), device)
+            root = stark.control_root_of(_AIRS["rv32im"], po2, ctrl, ps)
+            # uint32, as the JAX package's image id (the wire format's type)
+            _IMAGE_CTRL_CACHE[key] = (
+                ctrl, F.from_mont(root).cpu().numpy().view(np.uint32))
+        return _IMAGE_CTRL_CACHE[key]
 
 
 def image_id_of(image: MemoryImage, po2: int,
@@ -111,9 +117,11 @@ def _gen_witness(image, seg, rng=None):
     except GuestFault:
         raise
     except (OSError, AttributeError, subprocess.SubprocessError):
-        REPLAY_WITNESSES += 1
+        with _LOCK:
+            REPLAY_WITNESSES += 1
         return witness.trace_segment(image, seg, seg.po2, rng)
-    NATIVE_WITNESSES += 1
+    with _LOCK:
+        NATIVE_WITNESSES += 1
     return w
 
 

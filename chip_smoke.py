@@ -117,7 +117,27 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               every recursion data trace came from rec_eval. The sponge's
               device time by kind in one more, profiled KeccakAir proof
               and lift_keccak.
- 9. p254     the p254 sponge (csrc/poseidon254.cu) against its plain
+ 9. cluster  two sessions submitted over localhost HTTP to the port's
+              cluster (ClusterApi + make_http_server + BentoClient, worker
+              threads of run_workers: exec 1, prove 2, join 1, aux 1, and
+              coproc 1 for B; DEFAULT_PS, segment po2 17, device cuda),
+              reusing the systems [recursion] and [coproc] built: A, the
+              loop guest in CLUSTER_SEGMENTS po2-17 segments on the rv32i
+              rec_po2-20 lattice (4 prove+lift tasks, a two-level join
+              tree); B, the keccak guest on the coproc lattices at rec_po2
+              21 (keccak batch, lift_keccak, resolve_coproc). Each session
+              runs first through a dev-mode cluster (DevModeSystem: the
+              same claims, no proof); the real session's launch counts are
+              zeroed just before its creation and read as it succeeds
+              (sponge, NTT and constraint kernel > 0), every lift and join
+              came from the native rec_eval, the downloaded receipt loads
+              onto the card, verify_session accepts it, and its claim
+              digest, journal and stats equal the dev-mode session's. A
+              FAILED session fails the script with the task's error.
+              Prints each session's wall from create to SUCCEEDED, the
+              tasks and seconds of each stream (metrics.REGISTRY), the
+              receipt's bytes, the peak device memory and the launches.
+ 10. p254     the p254 sponge (csrc/poseidon254.cu) against its plain
               version (the Python-int hash), bit for bit, in every layout:
               one thread and 3 lanes a hash at 2^10 rows x 48, 64, 24 and
               16 columns (the identity proof's groups) and on 2^10 pairs,
@@ -133,7 +153,7 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               each beside its throughput bound (the dense schedule's count
               of the work) and its latency bound; the plain ms at 2^10 x
               64.
- 10. msm      the BN254 MSM (csrc/msm.cu, signed 8-bit digits, bit-slice
+ 11. msm      the BN254 MSM (csrc/msm.cu, signed 8-bit digits, bit-slice
               window sums) against its plain torch version at 2^10 points
               and against the host Pippenger (groth16/msm.py) at 2^12,
               with zero scalars, one, r - 1, digits of exactly 128 and of
@@ -144,11 +164,11 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               equal (sum_i i s_i mod r) * G, and the kernel's device ms
               there beside its bound and latency bound; the plain ms at
               2^10.
- 11. groth16  the CRS prover's path: a Merkle path of Poseidon-BN254 pair
+ 12. groth16  the CRS prover's path: a Merkle path of Poseidon-BN254 pair
               gadgets (depth GROTH16_DEPTH) as an R1CS, qap.setup_sparse
               (host) and qap.prove_sparse on the card; the proof verifies,
               a tampered public is refused, the MSM kernel launched.
- 12. wrap     the JAX CI wrap chain (tests/test_groth16_wrap.py:20-44):
+ 13. wrap     the JAX CI wrap chain (tests/test_groth16_wrap.py:20-44):
               echo guest words([1, 7]), seg po2 6, q2 / fri_min 16 / rate
               1/2, rec_po2 17: segment proof, lift, finalize_session,
               identity_p254 shrink (P254System.verify accepts it),
@@ -159,10 +179,11 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               and launches in the shrink (every layout must have run), R1CS
               rows and variables, the prover mode and the peak device
               memory.
-Each of the last four phases prints its seconds. The last two lines are
+Each of the last five phases prints its seconds. The last two lines are
 the kernel table (each kernel's launches on its own path, on the main
 path for the segment prover's three kernels, [wrap] for the p254 sponge
-and [groth16] for the MSM, and on every other path; max abs error, ms,
+and [groth16] for the MSM, and on every other path, [cluster]'s
+included; max abs error, ms,
 plain ms and bound ms; for the two BN254 kernels also the latency bound
 and the products this design does) and the contract line
 {"ok": true, "device": {...}}.
@@ -1669,7 +1690,7 @@ def phase_recursion(dev):
         receipts_verified=len(lifts) + 1, bumped_proof="rejected",
         changed_post_pc="rejected", native_rec_evals=native,
         launches_recursion=json.dumps(rec_launches).replace(" ", ""))
-    return rec_launches
+    return rec_launches, system
 
 
 def phase_coproc_kernels(dev, sm_clocks_per_s, lat):
@@ -1930,7 +1951,203 @@ def phase_coproc(dev, cons_check):
         span=f"{span[0]}->{span[1]}", verify="accepted",
         wrong_order="raised", native_rec_evals=native,
         launches_coproc=json.dumps(coproc_launches).replace(" ", ""))
-    return coproc_launches
+    return coproc_launches, system
+
+# ---------------------------------------------------------------------------
+# The proving cluster: sessions submitted over HTTP, proved on the card
+# ---------------------------------------------------------------------------
+
+# the loop guest's iterations (3 cycles each) for 3.5 po2-17 segments of
+# 130,940 cycles: 4 segments, so 4 prove+lift tasks and a two-level join
+# tree
+CLUSTER_ITERS = 7 * 130940 // 6
+CLUSTER_SEGMENTS = 4
+CLUSTER_POOLS = {"exec": 1, "prove": 2, "join": 1, "aux": 1}
+CLUSTER_TIMEOUT_S = 600
+
+
+def task_seconds() -> dict:
+    """{stream: (tasks, seconds)} of the cluster's TASK_DURATION
+    histograms (cluster/metrics.REGISTRY)."""
+    from boundless_tpu_torch.cluster import metrics as M
+
+    out = {}
+    for (name, labels), h in list(M.REGISTRY._metrics.items()):
+        if name == M.TASK_DURATION:
+            out[dict(labels)["stream"]] = (h._n, h._sum)
+    return out
+
+
+def cluster_session(ctx, pools, name, image, input_words, counted=False):
+    """One session through the port's REST API over localhost HTTP
+    (ClusterApi + make_http_server + BentoClient, `run_workers` threads):
+    upload, create, wait for SUCCEEDED (a FAILED session raises with the
+    task's error), download /receipts/stark/<job>. With `counted`, the
+    launch counts are zeroed just before the session is created and read
+    as it succeeds. Returns (status, wall s, receipt bytes, launches,
+    {stream: (tasks, s)}, native rec_evals, native witnesses, peak
+    bytes)."""
+    from boundless_tpu_torch.cluster.agent import run_workers
+    from boundless_tpu_torch.cluster.api import (BentoClient, ClusterApi,
+                                                 make_http_server)
+    from boundless_tpu_torch.recursion import vm
+    from boundless_tpu_torch.zkvm import guests, prove
+
+    api = ClusterApi(ctx)
+    server, thread = make_http_server(api)
+    thread.start()
+    client = BentoClient(f"http://127.0.0.1:{server.server_address[1]}")
+    threads, agents = run_workers(ctx, pools)
+    try:
+        client.upload_image(name, image)
+        client.upload_input(f"{name}-in", guests.words(input_words))
+        before = task_seconds()
+        evals, witnesses = vm.NATIVE_EVALS, prove.NATIVE_WITNESSES
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if counted:
+            zero_counts()
+        t0 = time.perf_counter()
+        job = client.create_session(name, f"{name}-in",
+                                    segment_po2=MAIN_PO2)
+        st = client.wait(job, timeout=CLUSTER_TIMEOUT_S, poll=0.05)
+        wall = time.perf_counter() - t0
+        launches = all_counts() if counted else {}
+        if st["status"] != "SUCCEEDED":
+            raise AssertionError(f"cluster session {name} ended "
+                                 f"{st['status']}: {st.get('error_msg')}")
+        peak = torch.cuda.max_memory_allocated()
+        after = task_seconds()
+        streams = {k: (n - before.get(k, (0, 0.0))[0],
+                       t - before.get(k, (0, 0.0))[1])
+                   for k, (n, t) in after.items()
+                   if n > before.get(k, (0, 0.0))[0]}
+        data = client._req("GET", f"/receipts/stark/{job}")
+        return (st, wall, data, launches, streams, vm.NATIVE_EVALS - evals,
+                prove.NATIVE_WITNESSES - witnesses, peak)
+    finally:
+        for a in agents:
+            a.stop()
+        for t in threads:
+            t.join(timeout=60)
+        server.shutdown()
+        server.server_close()
+
+
+def check_cluster_session(dev, root, name, image, words, segments,
+                          system, real_kw, pools) -> dict:
+    """Session `name` (`segments` segments) through a dev-mode cluster,
+    then through the real one on `dev`; holds the real receipt to
+    verify_session and to the dev-mode claim digest, journal and stats.
+    Returns its launches."""
+    import tempfile
+
+    from boundless_tpu_torch.cluster.agent import ClusterContext
+    from boundless_tpu_torch.cluster.hotstore import HotStore
+    from boundless_tpu_torch.cluster.storage import SharedFs
+    from boundless_tpu_torch.cluster.taskdb import MemoryBackend
+    from boundless_tpu_torch.recursion import coproc_succinct as cs
+    from boundless_tpu_torch.recursion import succinct
+    from boundless_tpu_torch.utils import serde
+    from boundless_tpu_torch.zkvm import paging, prove
+
+    def context(**kw):
+        return ClusterContext(
+            db=MemoryBackend(), hot=HotStore(),
+            store=SharedFs(tempfile.mkdtemp(dir=root)), ps=prove.DEFAULT_PS,
+            segment_po2=MAIN_PO2, device=dev, **kw)
+
+    dev_kw = dict(succinct=succinct.DevModeSystem(), dev_mode=True)
+    if "coproc_succinct" in real_kw:
+        dev_kw.update(coproc_succinct=cs.DevModeCoprocSystem(),
+                      coproc_po2=real_kw["coproc_po2"])
+    t0 = time.perf_counter()
+    ref_st, _, ref_data, *_ = cluster_session(
+        context(**dev_kw), pools, f"dev{name}", image, words)
+    t_ref = time.perf_counter() - t0
+    ref = serde.load_session_receipt(ref_data, dev)
+    st, wall, data, launches, streams, evals, witnesses, peak = \
+        cluster_session(context(succinct=system, **real_kw), pools, name,
+                        image, words, counted=True)
+    if min(launches[k] for k in ("poseidon2_sponge", "ntt_sub_transform",
+                                 "cons_eval")) <= 0:
+        raise AssertionError(f"session {name} skipped a kernel: {launches}")
+    if st["stats"]["segments"] != segments:
+        raise AssertionError(f"session {name} ran {st['stats']['segments']} "
+                             f"segments, expected {segments}")
+    # recursion proofs: a lift a segment and the joins; with the coproc
+    # lattice a lift_keccak and a resolve_coproc a batch (one here)
+    proofs = 2 * segments - 1 + (2 if "coproc_succinct" in real_kw else 0)
+    if evals != proofs or witnesses != segments:
+        raise AssertionError(f"session {name}: {evals} rec_evals for "
+                             f"{proofs} proofs, {witnesses} witnesses for "
+                             f"{segments} segments")
+    t0 = time.perf_counter()
+    session = serde.load_session_receipt(data, dev)
+    t_load = time.perf_counter() - t0
+    if session.root.proof.data_root.device != torch.device(dev):
+        raise AssertionError("the receipt did not load onto the card")
+    t0 = time.perf_counter()
+    ok = succinct.verify_session(session, system,
+                                 expected_mem_root=paging.image_root(image))
+    t_verify = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"verify_session rejected session {name}")
+    got = (session.root.claim.digest(), session.journal, st["stats"])
+    want = (ref.root.claim.digest(), ref.journal, ref_st["stats"])
+    if got != want:
+        raise AssertionError(f"session {name}: claim, journal or stats "
+                             f"differ from dev mode: {got} vs {want}")
+    p = system.params
+    say("cluster", session=name, segments=segments,
+        cycles=st["stats"]["total_cycles"],
+        lattice=f"rec_po2={p.rec_po2}:q{p.rec_ps.queries}:"
+                + "+".join(p.variants)
+                + (":coproc" if "coproc_succinct" in real_kw else ""),
+        wall_s=f"{wall:.3f}", dev_mode_wall_s=f"{t_ref:.3f}",
+        receipt_bytes=len(data), load_s=f"{t_load:.3f}",
+        verify_session_s=f"{t_verify:.3f}", verify_session="accepted",
+        claim_journal_stats_vs_dev_mode="equal",
+        exit_code=st["stats"]["exit_code"], native_rec_evals=evals,
+        max_memory_allocated=peak,
+        launches=json.dumps(launches).replace(" ", ""))
+    say("cluster", session=name, task_seconds=json.dumps(
+        {k: {"tasks": n, "s": round(t, 3)}
+         for k, (n, t) in sorted(streams.items())}).replace(" ", ""))
+    return launches
+
+
+def phase_cluster(dev, rec_system, coproc_system):
+    """Two sessions through the port's cluster (REST API over localhost
+    HTTP, worker threads, taskdb, planner, hot and object stores), proved
+    on the card with the systems [recursion] and [coproc] built: A, the
+    loop guest in 4 po2-17 segments on the rv32i rec_po2-20 lattice; B,
+    the keccak guest on the coproc lattices at rec_po2 21."""
+    import shutil
+    import tempfile
+
+    from boundless_tpu_torch.zkvm import guests
+
+    torch.cuda.empty_cache()  # earlier phases' cached blocks
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cluster_store_",
+                            dir=os.path.join(ROOT, "build"))
+    cluster_launches = {k: 0 for k in all_counts()}
+    try:
+        a = check_cluster_session(dev, root, "A", guests.loop_guest(),
+                                  [CLUSTER_ITERS], CLUSTER_SEGMENTS,
+                                  rec_system, {}, CLUSTER_POOLS)
+        b = check_cluster_session(
+            dev, root, "B", guests.keccak_guest(), [], 1, coproc_system,
+            dict(coproc_succinct=coproc_system.coproc_sys,
+                 coproc_po2=KEC_PO2), dict(CLUSTER_POOLS, coproc=1))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k in cluster_launches:
+        cluster_launches[k] = a[k] + b[k]
+    say("cluster", launches_cluster=json.dumps(cluster_launches
+                                               ).replace(" ", ""))
+    return cluster_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2659,9 +2876,11 @@ def main():
     launches, stats["cons_eval"] = phase_main(dev, cons_check,
                                               sm_clocks_per_s)
     phase_recursion_kernels(dev, sm_clocks_per_s, lat)
-    rec_launches = phase_recursion(dev)
+    rec_launches, rec_system = phase_recursion(dev)
     phase_coproc_kernels(dev, sm_clocks_per_s, lat)
-    coproc_launches = phase_coproc(dev, cons_check)
+    coproc_launches, coproc_system = phase_coproc(dev, cons_check)
+    cluster_launches = timed_phase("cluster", lambda: phase_cluster(
+        dev, rec_system, coproc_system))
     stats["p254_sponge"] = timed_phase("p254", lambda: phase_kernel_p254(
         dev, sm_clocks_per_s, lat))
     stats["bn254_msm"] = timed_phase("msm", lambda: phase_kernel_msm(
@@ -2679,6 +2898,7 @@ def main():
          "launches": launches[name],
          "launches_recursion": rec_launches.get(name, 0),
          "launches_coproc": coproc_launches.get(name, 0),
+         "launches_cluster": cluster_launches.get(name, 0),
          "launches_groth16": g16_launches[name],
          "launches_wrap": wrap_launches[name],
          **stats[name], "library_ms": None}

@@ -8,9 +8,11 @@ prove_segment -> verify_segment for the echo guest at po2 8 on the CPU
 (the native C++ witness included), a dev-mode lift of that receipt, a
 dev-mode keccak batch lifted into the coproc lattice, a
 RecursionAir proof of a small program (the native `rec_eval` trace) with
-its verification, and the wrap's modules: a p254-suite commit, a BLAKE3
+its verification, the wrap's modules: a p254-suite commit, a BLAKE3
 digest, a Groth16 proof and its pairing check, and the MSM's plain
-version; no `boundless_tpu` module may load. The
+version, and a dev-mode session of the echo guest through the port's
+cluster (`ClusterApi`, worker threads, the receipt's wire format); no
+`boundless_tpu` module may load. The
 sources of the port and of `chip_smoke.py` must not import either package.
 """
 
@@ -75,6 +77,34 @@ pk, vk = GP.setup(mc)
 assert GP.verify(vk, GP.prove(mc, pk, [1, 6, 2, 3, 6]), [6])
 g = G1.generator()
 assert msm_device.msm([g, g.double()], [3, 5], "cpu").eq(g.mul(13))
+for must in ("utils.serde", "cli", "cluster.agent", "cluster.api",
+             "cluster.dataplane", "cluster.executor_service",
+             "cluster.hotstore", "cluster.metrics", "cluster.planner",
+             "cluster.remote", "cluster.storage", "cluster.taskdb"):
+    assert "boundless_tpu_torch." + must in names, must
+import time
+from boundless_tpu_torch.cluster import agent, api, hotstore, storage, taskdb
+from boundless_tpu_torch.utils import serde
+ctx = agent.ClusterContext(db=taskdb.MemoryBackend(), hot=hotstore.HotStore(),
+                           store=storage.SharedFs(), ps=prove.TEST_PS,
+                           segment_po2=8, succinct=succinct.DevModeSystem(),
+                           dev_mode=True, device="cpu")
+capi = api.ClusterApi(ctx)
+capi.upload_image("echo", serde.dump_image(guests.echo()))
+capi.upload_input("in0", guests.words([2, 11, 22]))
+job = capi.create_session(dict(img="echo", input="in0"))["uuid"]
+threads, agents = agent.run_workers(ctx, {"exec": 1, "prove": 1, "join": 1,
+                                          "aux": 1})
+deadline = time.time() + 120
+while capi.session_status(job)["status"] not in ("SUCCEEDED", "FAILED"):
+    assert time.time() < deadline
+    time.sleep(0.05)
+for a in agents:
+    a.stop()
+assert capi.session_status(job)["status"] == "SUCCEEDED"
+session = serde.load_session_receipt(capi.receipt(job))
+assert session.journal == guests.words([11, 22])
+assert succinct.verify_session(session, ctx.succinct)
 loaded = [m for m in sys.modules if m.startswith(("jax", "boundless_tpu"))
           and not m.startswith("boundless_tpu_torch")]
 assert sorted(loaded) == ["boundless_tpu", "jax"], loaded  # placeholders
