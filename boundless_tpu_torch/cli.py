@@ -1,11 +1,14 @@
-"""boundless-tpu-torch CLI: the subcommands of the proving cluster.
+"""boundless-tpu-torch CLI: the subcommands of the proving cluster and the
+requestor.
 
-The port's copy of the cluster part of `boundless_tpu/cli.py` (reference
-`boundless` binary, `crates/boundless-cli`): `prover execute` (preflight),
-`cluster serve` (API + workers in one process), `cluster worker` (an
-HTTP-attached worker process) and `cluster dataplane` (the shared
-taskdb/hot-store server) — `python -m boundless_tpu_torch.cli <group>
-<cmd>`. Proofs run on `--device` (the card unless asked for the CPU).
+The port's copy of the cluster and requestor parts of `boundless_tpu/cli.py`
+(reference `boundless` binary, `crates/boundless-cli`): `prover execute`
+(preflight), `cluster serve` (API + workers in one process), `cluster
+worker` (an HTTP-attached worker process), `cluster dataplane` (the shared
+taskdb/hot-store server) and `requestor submit` (one signed request through
+a local market and a dev-mode broker) — `python -m boundless_tpu_torch.cli
+<group> <cmd>`. Proofs run on `--device` (the card unless asked for the
+CPU).
 """
 
 from __future__ import annotations
@@ -152,6 +155,65 @@ def cmd_cluster_dataplane(args):
                    + (["--sqlite", args.sqlite] if args.sqlite else []))
 
 
+def cmd_requestor_submit(args):
+    """One-shot requestor flow against a local market + broker
+    (reference `boundless requestor submit` / submit-file,
+    `crates/boundless-cli/src/commands/requestor/mod.rs:62`): build the
+    request with the layered builder, submit on-chain, let a dev-mode
+    broker price/lock/prove/fulfill, print (journal, seal)."""
+    import hashlib
+
+    from .cluster.storage import SharedFs
+    from .market.broker.pipeline import Broker, BrokerConfig
+    from .market.chain import MarketChain
+    from .market.client import Client, LocalStorageProvider
+    from .market.crypto import Wallet
+    from .zkvm import guests
+    from .zkvm.executor import Executor
+
+    class DevProver:
+        def preflight(self, image, input_data):
+            return Executor(image, input_data).run().total_cycles
+
+        def prove(self, image, input_data):
+            res = Executor(image, input_data).run()
+            seal = {"dev_mode": True, "journal": res.journal,
+                    "image_id": res.image_id.hex()}
+            return (res.journal, seal,
+                    hashlib.sha256(res.journal).digest())
+
+    def verifier(fill, req):
+        return (fill.seal.get("dev_mode")
+                and fill.seal["journal"] == fill.journal
+                and fill.seal["image_id"] == req.requirements.image_id)
+
+    image = _load_image(args.image)
+    payload = [int(x) for x in args.input.split(",")] if args.input else []
+    chain = MarketChain(verifier)
+    wallet = Wallet.from_seed((args.key or "requestor").encode())
+    chain.create_account(wallet.address, funds=10**9)
+    chain.create_account("prover-node", funds=10**7)
+    chain.deposit_collateral("prover-node", 10**6)
+    provider = LocalStorageProvider(SharedFs())
+    client = Client(chain, wallet, storage_provider=provider)
+    broker = Broker(chain, DevProver(), "prover-node",
+                    BrokerConfig(min_mcycle_price=0), storage=provider)
+    broker.start()
+    try:
+        req = client.build_request(image, guests.words(payload))
+        print(f"request {req.id.encoded()}: auction "
+              f"{req.offer.min_price}..{req.offer.max_price} wei")
+        rid = client.submit_onchain(req)
+        journal, seal = client.wait_for_fulfillment(
+            rid, timeout=args.timeout)
+        print(f"status: {chain.request_status(rid)}")
+        print(f"journal: {journal.hex()}")
+        print(f"seal: dev_mode={seal.get('dev_mode')} "
+              f"image_id={seal.get('image_id')}")
+    finally:
+        broker.stop()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="boundless-tpu-torch")
     sub = p.add_subparsers(dest="group", required=True)
@@ -208,6 +270,17 @@ def main(argv=None):
     dp.add_argument("--sqlite", default=None,
                     help="durable sqlite path (default: memory backend)")
     dp.set_defaults(fn=cmd_cluster_dataplane)
+
+    requestor = sub.add_parser("requestor").add_subparsers(dest="cmd",
+                                                           required=True)
+    sb = requestor.add_parser("submit")
+    sb.add_argument("--image", default="echo",
+                    help="guest name (echo/loop/...) or image path")
+    sb.add_argument("--input", default="3,11,22,33",
+                    help="comma-separated input words")
+    sb.add_argument("--key", default=None, help="requestor key seed")
+    sb.add_argument("--timeout", type=float, default=600.0)
+    sb.set_defaults(fn=cmd_requestor_submit)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -9,7 +9,8 @@ serialization is staged work, SURVEY.md §2.4c).
 The port's copy of `boundless_tpu/cluster/storage.py`. Torch pickles a
 tensor with its device, so `put` moves every tensor of an object to the
 CPU first (`utils/serde.to_cpu`): a file written on the card loads in a
-process without one.
+process without one. Each write has a temporary file of its own, so
+writers of one key never share one.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 import pickle
 import tempfile
 import threading
+import uuid
 
 from ..utils.serde import to_cpu
 
@@ -37,21 +39,24 @@ class SharedFs:
         assert ".." not in key
         return os.path.join(self.root, bucket, key)
 
-    def put(self, bucket: str, key: str, obj):
+    def _publish(self, bucket: str, key: str, write):
+        """Write through a temporary file of this call's own and rename it
+        into place (atomic publish). The reference names the temporary
+        `<path>.tmp`, so two writers of one key (the broker's preflight
+        and prove both upload the order's image) share it, and the later
+        rename finds it gone."""
         path = self._path(bucket, key)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
+        tmp = f"{path}.{uuid.uuid4().hex}.tmp"
         with open(tmp, "wb") as f:
-            pickle.dump(to_cpu(obj), f)
-        os.replace(tmp, path)  # atomic publish
+            write(f)
+        os.replace(tmp, path)
+
+    def put(self, bucket: str, key: str, obj):
+        self._publish(bucket, key, lambda f: pickle.dump(to_cpu(obj), f))
 
     def put_bytes(self, bucket: str, key: str, data: bytes):
-        path = self._path(bucket, key)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            f.write(data)
-        os.replace(tmp, path)
+        self._publish(bucket, key, lambda f: f.write(data))
 
     def get(self, bucket: str, key: str):
         path = self._path(bucket, key)

@@ -23,7 +23,8 @@ first. On load, the arrays of the prover's named tuples (`SegmentProof`,
 caller names; every other array stays numpy, as in the reference.
 `to_cpu` moves every tensor of an object to the CPU (the object store and
 the data plane use it, so a file written on the card loads in a process
-without one).
+without one); `to_device` moves them to any device (the market's seal
+verifiers use it to check a stored receipt on the card).
 """
 
 from __future__ import annotations
@@ -80,25 +81,29 @@ def load_image(data: bytes):
 # ---------------------------------------------------------------------------
 
 
-def to_cpu(obj):
-    """`obj` with every torch tensor in it moved to the CPU: a walk over
+def to_device(obj, device):
+    """`obj` with every torch tensor in it moved to `device`: a walk over
     named tuples, dataclasses, tuples, lists and dicts (the port's stand-in
-    for `jax.tree_util.tree_map`). Objects without a tensor come back as
-    they are."""
+    for `jax.tree_util.tree_map`). An object whose tensors all lie on
+    `device` comes back as it is; `torch.device("cuda")` takes a tensor on
+    any card as already there."""
+    dev = torch.device(device)
     if isinstance(obj, torch.Tensor):
-        return obj if obj.device.type == "cpu" else obj.detach().cpu()
+        here = obj.device.type == dev.type and (
+            dev.index is None or obj.device.index == dev.index)
+        return obj if here else obj.detach().to(dev)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        vals = [to_cpu(v) for v in obj]
+        vals = [to_device(v, dev) for v in obj]
         if all(a is b for a, b in zip(vals, obj)):
             return obj
         return type(obj)(*vals)
     if isinstance(obj, (list, tuple)):
-        vals = [to_cpu(v) for v in obj]
+        vals = [to_device(v, dev) for v in obj]
         if all(a is b for a, b in zip(vals, obj)):
             return obj
         return type(obj)(vals)
     if isinstance(obj, dict):
-        vals = {k: to_cpu(v) for k, v in obj.items()}
+        vals = {k: to_device(v, dev) for k, v in obj.items()}
         if all(vals[k] is v for k, v in obj.items()):
             return obj
         return vals
@@ -106,11 +111,16 @@ def to_cpu(obj):
         changed = {}
         for f in dataclasses.fields(obj):
             v = getattr(obj, f.name)
-            w = to_cpu(v)
+            w = to_device(v, dev)
             if w is not v:
                 changed[f.name] = w
         return dataclasses.replace(obj, **changed) if changed else obj
     return obj
+
+
+def to_cpu(obj):
+    """`obj` with every torch tensor in it moved to the CPU."""
+    return to_device(obj, "cpu")
 
 
 def _host_array(obj) -> np.ndarray:

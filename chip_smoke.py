@@ -137,7 +137,35 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               Prints each session's wall from create to SUCCEEDED, the
               tasks and seconds of each stream (metrics.REGISTRY), the
               receipt's bytes, the peak device memory and the launches.
- 10. p254     the p254 sponge (csrc/poseidon254.cu) against its plain
+ 10. market   signed requests through the port's market onto its
+              cluster (ClusterContext: DEFAULT_PS, segment po2 17,
+              succinct=None, the v1 aggregation seal; workers exec 1,
+              prove 2, join 1, aux 1; device cuda), each order built by
+              the requestor's Client, submitted to a MarketChain, priced,
+              locked, proved through ClusterProver and fulfilled by a
+              port Broker: (a) two loop-guest orders of MARKET_SEGMENTS
+              po2-17 segments fulfilled per fill on a chain whose
+              verifier is default_router(DEFAULT_PS, cuda) (the seal's
+              host tensors move to the card and its segment STARKs are
+              verified there); (b) two one-segment orders on a second
+              chain (batch_fulfill, batch_size 2) fulfilled in one
+              submit_root_and_fulfill after the in-guest ECDSA assessor
+              (secp256k1_guest.assessor_ecdsa, native execution) checked
+              both signatures. Every order must end FULFILLED with the
+              executor's journal, the prover must be paid, each per-fill
+              seal verified once and the batch's fills never. The launch
+              counts are zeroed just before (a) and read just after (b):
+              sponge, NTT and constraint kernel > 0. Then each seal of
+              (a) again alone (stored on the host, verified on the card:
+              its sponge launches > 0, its seconds), a seal with one
+              flipped word of a segment's public io rejected on the card,
+              and the assessor guest once more (cycles, seconds). Prints
+              per order cycles, submit -> locked, submit -> fulfilled
+              (market/bench.BenchRow; these include the broker's, the
+              chain monitor's and ClusterProver's polls) and effective
+              kHz; the prove stream's task seconds, the peak device
+              memory and the launches.
+ 11. p254     the p254 sponge (csrc/poseidon254.cu) against its plain
               version (the Python-int hash), bit for bit, in every layout:
               one thread and 3 lanes a hash at 2^10 rows x 48, 64, 24 and
               16 columns (the identity proof's groups) and on 2^10 pairs,
@@ -153,7 +181,7 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               each beside its throughput bound (the dense schedule's count
               of the work) and its latency bound; the plain ms at 2^10 x
               64.
- 11. msm      the BN254 MSM (csrc/msm.cu, signed 8-bit digits, bit-slice
+ 12. msm      the BN254 MSM (csrc/msm.cu, signed 8-bit digits, bit-slice
               window sums) against its plain torch version at 2^10 points
               and against the host Pippenger (groth16/msm.py) at 2^12,
               with zero scalars, one, r - 1, digits of exactly 128 and of
@@ -164,11 +192,11 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               equal (sum_i i s_i mod r) * G, and the kernel's device ms
               there beside its bound and latency bound; the plain ms at
               2^10.
- 12. groth16  the CRS prover's path: a Merkle path of Poseidon-BN254 pair
+ 13. groth16  the CRS prover's path: a Merkle path of Poseidon-BN254 pair
               gadgets (depth GROTH16_DEPTH) as an R1CS, qap.setup_sparse
               (host) and qap.prove_sparse on the card; the proof verifies,
               a tampered public is refused, the MSM kernel launched.
- 13. wrap     the JAX CI wrap chain (tests/test_groth16_wrap.py:20-44):
+ 14. wrap     the JAX CI wrap chain (tests/test_groth16_wrap.py:20-44):
               echo guest words([1, 7]), seg po2 6, q2 / fri_min 16 / rate
               1/2, rec_po2 17: segment proof, lift, finalize_session,
               identity_p254 shrink (P254System.verify accepts it),
@@ -179,11 +207,11 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               and launches in the shrink (every layout must have run), R1CS
               rows and variables, the prover mode and the peak device
               memory.
-Each of the last five phases prints its seconds. The last two lines are
+Each of the last six phases prints its seconds. The last two lines are
 the kernel table (each kernel's launches on its own path, on the main
 path for the segment prover's three kernels, [wrap] for the p254 sponge
-and [groth16] for the MSM, and on every other path, [cluster]'s
-included; max abs error, ms,
+and [groth16] for the MSM, and on every other path, [cluster]'s and
+[market]'s included; max abs error, ms,
 plain ms and bound ms; for the two BN254 kernels also the latency bound
 and the products this design does) and the contract line
 {"ok": true, "device": {...}}.
@@ -2151,6 +2179,258 @@ def phase_cluster(dev, rec_system, coproc_system):
 
 
 # ---------------------------------------------------------------------------
+# The market: signed requests locked, proved on the card and fulfilled
+# ---------------------------------------------------------------------------
+
+# the loop guest's iterations (3 cycles each): MARKET_ITERS is 1.75 po2-17
+# segments of 130,940 cycles (2 segments, about half of CLUSTER_ITERS),
+# MARKET_ONE_ITERS half of one segment
+MARKET_ITERS = 7 * 130940 // 12
+MARKET_SEGMENTS = 2
+MARKET_ONE_ITERS = 130940 // 6
+MARKET_TIMEOUT_S = 600
+SELECTOR_STARK = "0x00000000"  # market/router.py: the session STARK seal
+
+
+class TimedVerifier:
+    """A chain's verifier with each call's request id, verdict and
+    seconds kept."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+        self._lock = threading.Lock()
+
+    def __call__(self, fill, request):
+        t0 = time.perf_counter()
+        ok = self.fn(fill, request)
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.calls.append((fill.request_id.encoded(), ok, dt))
+        return ok
+
+
+def market_world(verifier, provider):
+    """A MarketChain with a funded requestor and prover, and the
+    requestor's Client."""
+    from boundless_tpu_torch.market.chain import MarketChain
+    from boundless_tpu_torch.market.client import Client
+    from boundless_tpu_torch.market.crypto import Wallet
+
+    chain = MarketChain(verifier)
+    alice = Wallet.from_seed(b"alice")
+    chain.create_account(alice.address, funds=10**9)
+    chain.create_account("prover1", funds=10**7)
+    chain.deposit_collateral("prover1", 10**6)
+    return chain, Client(chain, alice, storage_provider=provider)
+
+
+def market_orders(mode, chain, client, prover, provider, iters, segments,
+                  **config):
+    """One loop-guest order per entry of `iters`, built and submitted to
+    `chain` one after the other and fulfilled by a port Broker driving
+    `prover` (a ClusterProver); MarketBench records submit -> locked and
+    submit -> fulfilled from the chain's events. Every order must end
+    FULFILLED with the executor's journal and a seal of `segments`
+    segments, and the prover's balance must rise. Returns [(request,
+    fill, BenchRow)]."""
+    from boundless_tpu_torch.market.bench import MarketBench
+    from boundless_tpu_torch.market.broker.pipeline import (Broker,
+                                                            BrokerConfig,
+                                                            OrderStatus)
+    from boundless_tpu_torch.zkvm import guests
+    from boundless_tpu_torch.zkvm.executor import fast_execute
+
+    paid = chain.balances["prover1"]
+    broker = Broker(chain, prover, "prover1",
+                    BrokerConfig(min_mcycle_price=0, **config),
+                    storage=provider)
+    image = guests.loop_guest()
+    broker.start()
+    try:
+        rows = MarketBench(client, chain, image,
+                           lambda i: guests.words([iters[i]]),
+                           count=len(iters)).run(timeout=MARKET_TIMEOUT_S)
+    finally:
+        broker.stop()
+    out = []
+    for it, row in zip(iters, rows):
+        order = broker.orders.get(row.request_id)
+        status = order.status if order else None
+        if status != OrderStatus.FULFILLED or row.fulfilled_at is None:
+            raise AssertionError(
+                f"[market] {mode} order {row.request_id} ended {status}: "
+                f"{order.error if order else 'never ingested'}")
+        fill = chain.get_fulfillment(row.request_id)
+        journal = fast_execute(image, guests.words([it]))[2]
+        if fill.journal != journal:
+            raise AssertionError(f"[market] {mode} journal differs from "
+                                 f"the executor's")
+        if len(fill.seal.root.segments) != segments:
+            raise AssertionError(
+                f"[market] {mode} seal of {len(fill.seal.root.segments)} "
+                f"segments, expected {segments}")
+        row.cycles = order.cycles
+        out.append((chain.requests[row.request_id], fill, row))
+        say("market", mode=mode, order=row.request_id, status=status,
+            segments=segments, cycles=row.cycles,
+            submit_to_locked_s=row.lock_latency,
+            submit_to_fulfilled_s=row.fulfill_latency,
+            effective_khz=row.effective_khz, journal_vs_executor="equal")
+    if chain.balances["prover1"] <= paid:
+        raise AssertionError(f"[market] {mode}: the prover was not paid")
+    say("market", mode=mode, prover_paid=chain.balances["prover1"] - paid)
+    return out
+
+
+def tampered_seal(seal):
+    """`seal` with one word of its first segment's public io flipped."""
+    seg = seal.root.segments[0]
+    pub = dict(seg.pub)
+    io = np.array(pub["io"], copy=True)
+    io.flat[0] ^= 1
+    pub["io"] = io
+    segments = [dataclasses.replace(seg, pub=pub)] + list(
+        seal.root.segments[1:])
+    return dataclasses.replace(
+        seal, root=dataclasses.replace(seal.root, segments=segments))
+
+
+def phase_market(dev, ps=None):
+    """Signed requests through the port's market onto its cluster, proved
+    on `dev` (ClusterContext: DEFAULT_PS, segment po2 17, succinct=None,
+    pools CLUSTER_POOLS): (a) two loop-guest orders of MARKET_SEGMENTS
+    segments fulfilled per fill on a chain whose verifier is
+    default_router(DEFAULT_PS, dev); (b) two one-segment orders on a
+    second chain fulfilled in one batch through the in-guest ECDSA
+    assessor and submit_root_and_fulfill; (c) a seal of (a) with one
+    flipped public io word rejected on the card."""
+    import shutil
+    import tempfile
+
+    from boundless_tpu_torch.cluster.agent import ClusterContext, run_workers
+    from boundless_tpu_torch.cluster.api import ClusterApi
+    from boundless_tpu_torch.cluster.hotstore import HotStore
+    from boundless_tpu_torch.cluster.storage import SharedFs
+    from boundless_tpu_torch.cluster.taskdb import MemoryBackend
+    from boundless_tpu_torch.market import batcher
+    from boundless_tpu_torch.market.broker.cluster_prover import \
+        ClusterProver
+    from boundless_tpu_torch.market.client import LocalStorageProvider
+    from boundless_tpu_torch.market.router import default_router
+    from boundless_tpu_torch.market.types import Fulfillment
+    from boundless_tpu_torch.zkvm import prove
+    from boundless_tpu_torch.zkvm.executor import fast_execute
+
+    ps = ps or prove.DEFAULT_PS
+    torch.cuda.empty_cache()  # earlier phases' cached blocks
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="market_store_",
+                            dir=os.path.join(ROOT, "build"))
+    ctx = ClusterContext(db=MemoryBackend(), hot=HotStore(),
+                         store=SharedFs(os.path.join(root, "cluster")),
+                         ps=ps, segment_po2=MAIN_PO2, succinct=None,
+                         device=dev)
+    provider = LocalStorageProvider(SharedFs(os.path.join(root, "market")))
+    router = default_router(ps, dev).market_verifier(SELECTOR_STARK)
+    per_fill, batched = TimedVerifier(router), TimedVerifier(router)
+    prover = ClusterProver(ClusterApi(ctx), timeout=MARKET_TIMEOUT_S)
+    threads, agents = run_workers(ctx, CLUSTER_POOLS)
+    try:
+        chain_a, client_a = market_world(per_fill, provider)
+        chain_b, client_b = market_world(batched, provider)
+        before = task_seconds()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        a = market_orders("per_fill", chain_a, client_a, prover, provider,
+                          (MARKET_ITERS, MARKET_ITERS + 1), MARKET_SEGMENTS)
+        t_a = time.perf_counter() - t0
+        b = market_orders("batch", chain_b, client_b, prover, provider,
+                          (MARKET_ONE_ITERS, MARKET_ONE_ITERS + 1), 1,
+                          batch_fulfill=True, batch_size=2)
+        wall = time.perf_counter() - t0
+        launches = all_counts()
+        peak = torch.cuda.max_memory_allocated()
+        after = task_seconds()
+    finally:
+        for ag in agents:
+            ag.stop()
+        for t in threads:
+            t.join(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    if min(launches[k] for k in ("poseidon2_sponge", "ntt_sub_transform",
+                                 "cons_eval")) <= 0:
+        raise AssertionError(f"[market] skipped a kernel: {launches}")
+    # (a) each fill's seal was verified once, under the chain's lock, and
+    # accepted; the batch's fills met no per-fill verifier
+    if sorted(c[0] for c in per_fill.calls) != sorted(
+            r.id.encoded() for r, _, _ in a) or not all(
+            c[1] for c in per_fill.calls):
+        raise AssertionError(f"[market] per-fill verifies: {per_fill.calls}")
+    if batched.calls:
+        raise AssertionError(f"[market] the batch met the per-fill "
+                             f"verifier: {batched.calls}")
+    streams = {k: (n - before.get(k, (0, 0.0))[0],
+                   t - before.get(k, (0, 0.0))[1])
+               for k, (n, t) in after.items()
+               if n > before.get(k, (0, 0.0))[0]}
+    say("market", orders=len(a) + len(b), wall_s=f"{wall:.3f}",
+        per_fill_wall_s=f"{t_a:.3f}", batch_wall_s=f"{wall - t_a:.3f}",
+        ps=f"q{ps.queries}", segment_po2=MAIN_PO2,
+        in_run_verify_s=json.dumps([round(c[2], 3) for c in per_fill.calls]
+                                   ).replace(" ", ""),
+        max_memory_allocated=peak,
+        launches=json.dumps(launches).replace(" ", ""))
+    say("market", task_seconds=json.dumps(
+        {k: {"tasks": n, "s": round(t, 3)}
+         for k, (n, t) in sorted(streams.items())}).replace(" ", ""))
+    # each stored seal again, alone: its tensors lie on the host (the
+    # object store's copy) and the verifier moves them to the card, where
+    # the sponge runs its Merkle checks
+    for req, fill, _ in a:
+        host = fill.seal.root.segments[0].proof.data_root.device.type
+        c0 = counts()["poseidon2_sponge"]
+        t0 = time.perf_counter()
+        ok = router(fill, req)
+        dt = time.perf_counter() - t0
+        sponge = counts()["poseidon2_sponge"] - c0
+        if not ok or host != "cpu" or sponge <= 0:
+            raise AssertionError(f"[market] seal verify on the card: ok={ok} "
+                                 f"stored on {host}, {sponge} sponge "
+                                 f"launches")
+        say("market", seal=req.id.encoded(), stored_on=host,
+            verified_on=str(dev), verify_s=f"{dt:.3f}",
+            sponge_launches=sponge, verdict="accepted")
+    # (c) one flipped word of a segment's public io
+    req, fill, _ = a[0]
+    bad = Fulfillment(request_id=fill.request_id, journal=fill.journal,
+                      claim_digest=fill.claim_digest,
+                      seal=tampered_seal(fill.seal), prover=fill.prover)
+    c0 = counts()["poseidon2_sponge"]
+    t0 = time.perf_counter()
+    if router(bad, req):
+        raise AssertionError("[market] a tampered seal was accepted")
+    say("market", tampered_seal="rejected", verified_on=str(dev),
+        verify_s=f"{time.perf_counter() - t0:.3f}",
+        sponge_launches=counts()["poseidon2_sponge"] - c0)
+    # (b) the batch's assessor guest, once more alone: two in-guest ECDSA
+    # recoveries in the native executor
+    fills = [(r, chain_b.request_sigs[r.id.encoded()], f) for r, f, _ in b]
+    image, inp = batcher.Assessor().guest_session(fills)
+    t0 = time.perf_counter()
+    cycles, code, journal = fast_execute(image, inp)
+    t_exec = time.perf_counter() - t0
+    if code != 0 or journal != batcher.expected_assessor_journal(fills):
+        raise AssertionError("[market] assessor guest run differs")
+    say("market", assessor_fills=len(fills), assessor_cycles=cycles,
+        assessor_s=f"{t_exec:.3f}", set_root_fulfilled=len(b))
+    say("market", launches_market=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The STARK-to-Groth16 wrap: the p254 sponge, the MSM, the CRS prover and
 # the CI wrap chain
 # ---------------------------------------------------------------------------
@@ -2881,6 +3161,7 @@ def main():
     coproc_launches, coproc_system = phase_coproc(dev, cons_check)
     cluster_launches = timed_phase("cluster", lambda: phase_cluster(
         dev, rec_system, coproc_system))
+    market_launches = timed_phase("market", lambda: phase_market(dev))
     stats["p254_sponge"] = timed_phase("p254", lambda: phase_kernel_p254(
         dev, sm_clocks_per_s, lat))
     stats["bn254_msm"] = timed_phase("msm", lambda: phase_kernel_msm(
@@ -2899,6 +3180,7 @@ def main():
          "launches_recursion": rec_launches.get(name, 0),
          "launches_coproc": coproc_launches.get(name, 0),
          "launches_cluster": cluster_launches.get(name, 0),
+         "launches_market": market_launches.get(name, 0),
          "launches_groth16": g16_launches[name],
          "launches_wrap": wrap_launches[name],
          **stats[name], "library_ms": None}

@@ -11,8 +11,10 @@ RecursionAir proof of a small program (the native `rec_eval` trace) with
 its verification, the wrap's modules: a p254-suite commit, a BLAKE3
 digest, a Groth16 proof and its pairing check, and the MSM's plain
 version, and a dev-mode session of the echo guest through the port's
-cluster (`ClusterApi`, worker threads, the receipt's wire format); no
-`boundless_tpu` module may load. The
+cluster (`ClusterApi`, worker threads, the receipt's wire format), the
+market's modules: `cli requestor submit` through a dev-mode broker and the
+in-guest ECDSA assessor over one signed fill; no `boundless_tpu` module
+may load. The
 sources of the port and of `chip_smoke.py` must not import either package.
 """
 
@@ -105,6 +107,34 @@ assert capi.session_status(job)["status"] == "SUCCEEDED"
 session = serde.load_session_receipt(capi.receipt(job))
 assert session.journal == guests.words([11, 22])
 assert succinct.verify_session(session, ctx.succinct)
+for must in ("zkvm.secp256k1_guest", "market.types", "market.crypto",
+             "market.chain", "market.storage_providers", "market.client",
+             "market.deployments", "market.router", "market.batcher",
+             "market.order_stream", "market.order_stream_http",
+             "market.bench", "market.broker.pipeline", "market.broker.db",
+             "market.broker.cluster_prover", "market.broker.telemetry"):
+    assert "boundless_tpu_torch." + must in names, must
+import contextlib, io
+from boundless_tpu_torch import cli
+from boundless_tpu_torch.market import batcher, crypto, types as mtypes
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    cli.main(["requestor", "submit", "--input", "2,5,6", "--timeout", "60"])
+assert "status: fulfilled" in buf.getvalue(), buf.getvalue()
+assert "journal: 0500000006000000" in buf.getvalue(), buf.getvalue()
+alice = crypto.Wallet.from_seed(b"alice")
+journal = guests.words([5, 6])
+req = mtypes.ProofRequest(
+    id=mtypes.RequestId(alice.address, 1),
+    requirements=mtypes.Requirements(
+        image_id="ab", predicate=mtypes.Predicate.digest_match(journal)),
+    image_url="local://x", input_data=b"",
+    offer=mtypes.Offer(1, 1, 0.0, 1.0, 10.0, 10.0, 0))
+fill = mtypes.Fulfillment(req.id, journal, b"c" * 32, None, "prover1")
+assessed = batcher.Assessor().assess(
+    [(req, mtypes.sign_request(req, alice), fill)], "prover1")
+assert assessed.journal == batcher.expected_assessor_journal(
+    [(req, None, fill)])
 loaded = [m for m in sys.modules if m.startswith(("jax", "boundless_tpu"))
           and not m.startswith("boundless_tpu_torch")]
 assert sorted(loaded) == ["boundless_tpu", "jax"], loaded  # placeholders
