@@ -1,14 +1,18 @@
 """boundless-tpu-torch CLI: the subcommands of the proving cluster and the
 requestor.
 
-The port's copy of the cluster and requestor parts of `boundless_tpu/cli.py`
-(reference `boundless` binary, `crates/boundless-cli`): `prover execute`
-(preflight), `cluster serve` (API + workers in one process), `cluster
-worker` (an HTTP-attached worker process), `cluster dataplane` (the shared
-taskdb/hot-store server) and `requestor submit` (one signed request through
-a local market and a dev-mode broker) — `python -m boundless_tpu_torch.cli
-<group> <cmd>`. Proofs run on `--device` (the card unless asked for the
-CPU).
+The port's copy of `boundless_tpu/cli.py` (reference `boundless` binary,
+`crates/boundless-cli`): `prover execute` (preflight), `prover
+generate-config` (the config wizard), `prover audit-degrees` (the
+constraint-degree audit), `prover bootstrap-verifier` (the on-chain
+verifier artifacts), `cluster serve` (API + workers in one process),
+`cluster worker` (an HTTP-attached worker process), `cluster dataplane`
+(the shared taskdb/hot-store server), `requestor submit` (one signed
+request through a local market and a dev-mode broker) and `rewards
+emissions` / `rewards mint` (the ZKC emission split and the PoVW mints) —
+`python -m boundless_tpu_torch.cli <group> <cmd>`. Proofs and audits run
+on `--device` (the card unless asked for the CPU). The reference's `prover
+benchmark` waits for the port's bench.
 """
 
 from __future__ import annotations
@@ -51,6 +55,136 @@ def cmd_prover_execute(args):
         total_cycles=res.total_cycles, segments=len(res.segments),
         exit_code=res.exit_code, journal=res.journal.hex(),
         image_id=res.image_id.hex())))
+
+
+def cmd_prover_generate_config(args):
+    """Config wizard (reference generate_config.rs): sizes segment po2 from
+    the card's memory and sets one concurrent proof per card."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if not count:
+        raise RuntimeError("generate-config reads the cards' memory and "
+                           "needs a CUDA device")
+    devices = [torch.cuda.get_device_name(i) for i in range(count)]
+    mem_gb = min(torch.cuda.get_device_properties(i).total_memory
+                 for i in range(count)) // (1 << 30)
+    po2 = min(20, max(14, 17 + (mem_gb // 16)))
+    print(json.dumps(dict(
+        devices=devices,
+        mem_gb=mem_gb,
+        segment_po2=po2,
+        peak_prove_khz=args.khz or 100.0,
+        max_concurrent_proofs=count,
+        note="the port has no `prover benchmark` yet: measure a segment's "
+             "effective kHz (chip_smoke.py [main]) and set peak_prove_khz "
+             "= 0.75 * effective_khz",
+    )))
+
+
+def rv32im_audit_pub(rng, device):
+    """Random rv32im PublicValues for the degree audit: uniform words in
+    [0, P) drawn field by field in declaration order (the reference
+    CLI's draws, so the audit sees the same constants)."""
+    import numpy as np
+    import torch
+
+    from .air import rv32im as R
+    from .core import field as F
+
+    def rf(shape):
+        words = rng.integers(0, F.P, size=shape, dtype=np.uint32)
+        return torch.from_numpy(words.astype(np.int32)).to(device)
+
+    return R.PublicValues(
+        pre_pc=rf(()), post_pc=rf(()), pre_regs=rf((64,)),
+        post_regs=rf((64,)), halted=rf(()), pre_seqs=rf((4,)),
+        post_seqs=rf((4,)), io=rf((R.IO_MAX, 5)), cpio=rf((R.CP_IO, 4)),
+        mem=rf((R.MEM_PAGES, R.MEM_PAGE_ELEMS)))
+
+
+def cmd_prover_audit_degrees(args):
+    """Constraint-degree audit of the rv32im AIR (air/degree.py) on
+    `--device`.
+
+    The dev gate for any AIR change: fails if any constraint exceeds the
+    declared max_degree or the hard composition-split budget.
+    """
+    import numpy as np
+
+    from .air import degree as DA
+    from .air import rv32im as R
+
+    pub = rv32im_audit_pub(np.random.default_rng(0), args.device)
+    for air in (R.Rv32imAir(), R.Rv32imAir(False)):
+        degs = DA.assert_degrees(air, pub, po2=args.po2, device=args.device)
+        n = 1 << args.po2
+        worst = max(d.degree for d in degs)
+        print(json.dumps(dict(
+            air=air.name, constraints=len(degs), po2=args.po2,
+            worst_degree=worst, worst_mult=round(worst / (n - 1), 3),
+            declared=air.max_degree, budget=DA.degree_budget(args.po2),
+            ok=True)))
+
+
+def cmd_prover_bootstrap_verifier(args):
+    """Generate the on-chain verifier artifacts (xtask bootstrap role:
+    reference `xtask/src/bootstrap_blake3_groth16.rs:43-46` regenerating
+    contracts/src/blake3-groth16/*.sol).
+
+    Builds the recursion system and identity_p254 on `--device` (their
+    control IDs run the Poseidon2 and p254 sponges), the wrap circuit's
+    layout for them, a DETERMINISTIC dev CRS (--seed; a production
+    deployment substitutes the ceremony CRS), and writes
+    Groth16Verifier.sol with the verifying key and the allowed-set control
+    root baked in, and bootstrap.json, into --out. The layout and the
+    set-up are host work (minutes at CI scale)."""
+    import random
+
+    from .core import poseidon_bn254 as P254
+    from .groth16 import circuit as C
+    from .groth16 import evm, qap, r1cs
+    from .prover import stark
+    from .recursion import air as rair
+    from .recursion import identity, succinct
+
+    seconds = {}
+    t0 = time.perf_counter()
+    ps = stark.ProofSystem(queries=args.queries, fri_min_degree=16,
+                           commit_expand=2)
+    params = succinct.SuccinctParams(seg_po2=args.seg_po2, seg_ps=ps,
+                                     rec_po2=args.rec_po2, rec_ps=ps)
+    system = succinct.get_system(params, device=args.device)
+    seconds["recursion_system"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p254 = identity.get_p254(system)
+    seconds["identity_p254"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bld = r1cs.Builder(concrete=False)
+    C.build_verifier(bld, rair.AIR, p254.po2, p254.ps254,
+                     p254.control_id, proof=None, pub_vals=None)
+    sys_ = bld.to_sparse()
+    seconds["layout"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng = random.Random(args.seed)
+    _td, vk = qap.setup_trapdoor(sys_, rng=lambda n: rng.randrange(1, n))
+    seconds["setup"] = time.perf_counter() - t0
+    root_felt = P254.pack_bb([int(x) for x in system.allowed_root])
+    src = evm.generate_verifier(vk, allowed_root_felt=int(root_felt))
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "Groth16Verifier.sol")
+    with open(path, "w") as f:
+        f.write(src)
+    meta = dict(seg_po2=args.seg_po2, rec_po2=args.rec_po2,
+                queries=args.queries, seed=args.seed,
+                n_rows=len(sys_.rows), n_vars=sys_.n_vars,
+                control_root_felt=str(int(root_felt)),
+                allowed_root=[int(x) for x in system.allowed_root])
+    with open(os.path.join(args.out, "bootstrap.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    print(json.dumps(dict(wrote=path, **meta)))
+    print(json.dumps(dict(device=str(system.device), seconds={
+        k: round(v, 3) for k, v in seconds.items()})))
 
 
 def cmd_cluster_serve(args):
@@ -214,6 +348,47 @@ def cmd_requestor_submit(args):
         broker.stop()
 
 
+def cmd_rewards_emissions(args):
+    """Per-epoch ZKC emission split (reference `boundless rewards`
+    commands, `crates/boundless-cli/src/commands/rewards/mod.rs:78`;
+    IZKC.getEmissionsForEpoch)."""
+    from .market.povw import EmissionSchedule
+
+    sched = EmissionSchedule()
+    for ep in range(args.epoch, args.epoch + args.count):
+        total = sched.emissions_for_epoch(ep)
+        print(json.dumps(dict(epoch=ep, total=total,
+                              povw=sched.povw_emissions(ep),
+                              staking=sched.staking_emissions(ep))))
+
+
+def cmd_rewards_mint(args):
+    """Compute per-prover PoVW mints for an epoch from a work-log JSON
+    file ([{prover, cycles, claim_digest}, ...] — the role of the
+    reference mint-calculator guest over a posted work log)."""
+    import hashlib
+
+    from .market.povw import MintCalculator, WorkLog
+
+    with open(args.log) as f:
+        entries = json.load(f)
+    # entries land in the epoch named in the file (default 0); the log's
+    # clock sits one epoch past the largest so every epoch is closed
+    max_ep = max((int(e.get("epoch", 0)) for e in entries), default=0)
+    log = WorkLog(epoch_seconds=1.0, clock=lambda: max_ep + 1)
+    for e in entries:
+        log.clock = lambda ep=int(e.get("epoch", 0)): ep
+        log.record(e["prover"], int(e["cycles"]),
+                   bytes.fromhex(e.get("claim_digest") or
+                                 hashlib.sha256(json.dumps(
+                                     e, sort_keys=True).encode()
+                                                ).hexdigest()))
+        log.clock = lambda: max_ep + 1
+    mints = MintCalculator(log, epoch_reward=args.epoch_reward
+                           ).mint_for_epoch(args.epoch)
+    print(json.dumps(mints, indent=2, sort_keys=True))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="boundless-tpu-torch")
     sub = p.add_subparsers(dest="group", required=True)
@@ -224,6 +399,24 @@ def main(argv=None):
     ex.add_argument("--input", default="")
     ex.add_argument("--po2", type=int, default=14)
     ex.set_defaults(fn=cmd_prover_execute)
+    gc = prover.add_parser("generate-config")
+    gc.add_argument("--khz", type=float, default=None)
+    gc.set_defaults(fn=cmd_prover_generate_config)
+    ad = prover.add_parser("audit-degrees")
+    ad.add_argument("--po2", type=int, default=5)
+    ad.add_argument("--device", default="cuda",
+                    help="where the audit runs (default: the card)")
+    ad.set_defaults(fn=cmd_prover_audit_degrees)
+    bv = prover.add_parser("bootstrap-verifier")
+    bv.add_argument("--out", default="contracts")
+    bv.add_argument("--seg-po2", type=int, default=6)
+    bv.add_argument("--rec-po2", type=int, default=17)
+    bv.add_argument("--queries", type=int, default=2)
+    bv.add_argument("--seed", type=int, default=0)
+    bv.add_argument("--device", default="cuda",
+                    help="where the control IDs are computed (default: "
+                         "the card)")
+    bv.set_defaults(fn=cmd_prover_bootstrap_verifier)
 
     cluster = sub.add_parser("cluster").add_subparsers(dest="cmd",
                                                        required=True)
@@ -281,6 +474,18 @@ def main(argv=None):
     sb.add_argument("--key", default=None, help="requestor key seed")
     sb.add_argument("--timeout", type=float, default=600.0)
     sb.set_defaults(fn=cmd_requestor_submit)
+
+    rewards = sub.add_parser("rewards").add_subparsers(dest="cmd",
+                                                       required=True)
+    em = rewards.add_parser("emissions")
+    em.add_argument("--epoch", type=int, default=0)
+    em.add_argument("--count", type=int, default=1)
+    em.set_defaults(fn=cmd_rewards_emissions)
+    mi = rewards.add_parser("mint")
+    mi.add_argument("--log", required=True, help="work-log JSON file")
+    mi.add_argument("--epoch", type=int, default=0)
+    mi.add_argument("--epoch-reward", type=int, default=1_000_000)
+    mi.set_defaults(fn=cmd_rewards_mint)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -67,6 +67,21 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               segment, apart from the timed ones, give the sponge's device
               time by kind (leaves, tree levels, tree top, transcript,
               verifier; SpongeProfile).
+  6a. audit   degree.assert_degrees on the card at po2 5, expand 16 (the
+              coset LDE and the INTT through the NTT kernel) for rv32im,
+              rv32i, RecursionAir and KeccakAir: every lane's degree equal
+              to the JAX golden tests/data/torch_degree_golden.npz, NTT
+              launches > 0; each AIR's constraints, worst degree, budget
+              and seconds.
+  6b. debug   debug.check_constraints on the card on [main]'s own po2-17
+              rv32i witness: ok; with one rdv word of an active row bumped,
+              failures that name the same constraints as the CPU plain path
+              on a po2-8 loop-guest witness bumped the same way.
+  6c. mesh    the main path's session (two po2-17 segments) proved by
+              parallel/mesh.shard_batched_prover on a mesh of every card
+              (world size 1 here), each proof word for word equal to
+              stark.prove of the same trace on the card; sponge, NTT and
+              constraint kernel > 0; a mesh with tp = 2 refused.
   7. recursion the sponge at 2^21 x 64 in every layout, every level of its
               merkle.commit, and the NTT at 2^22 x 64 forward (three
               launches) bit for bit against their plain versions and
@@ -92,6 +107,10 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               quotient stage's seconds, the peak device memory and the
               sponge's launches by layout of each recursion proof, and its
               device time by kind in one more, profiled lift.
+  7a. povw    market/povw.WorkLog.record_receipt on [recursion]'s session
+              receipt: verify_session on the card (sponge > 0), 2 << 17
+              cycles credited; the same claim again and a forged
+              post_segments refused; MintCalculator mints the closed epoch.
   8. coproc   the sponge at 2^11 x 4048 and the NTT at 2^11 x 4048 (with
               the LDE glue at the KeccakAir trace's 2^10 x 4048) bit for bit
               against their plain versions and timed; the keccak guest's
@@ -165,6 +184,10 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               chain monitor's and ClusterProver's polls) and effective
               kHz; the prove stream's task seconds, the peak device
               memory and the launches.
+ 10a. services on [market]'s two chains: IndexerService syncs the events
+              (requests, locks and fills equal to the phase's fills) and
+              its localhost API's /stats equals them; Indexer agrees; a
+              Slasher pass slashes nothing.
  11. p254     the p254 sponge (csrc/poseidon254.cu) against its plain
               version (the Python-int hash), bit for bit, in every layout:
               one thread and 3 lanes a hash at 2^10 rows x 48, 64, 24 and
@@ -207,11 +230,12 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               and launches in the shrink (every layout must have run), R1CS
               rows and variables, the prover mode and the peak device
               memory.
-Each of the last six phases prints its seconds. The last two lines are
+The phases from [audit] on, less [recursion] and [coproc], print their
+seconds. The last two lines are
 the kernel table (each kernel's launches on its own path, on the main
 path for the segment prover's three kernels, [wrap] for the p254 sponge
-and [groth16] for the MSM, and on every other path, [cluster]'s and
-[market]'s included; max abs error, ms,
+and [groth16] for the MSM, and on every other path, [audit]'s, [mesh]'s,
+[povw]'s, [cluster]'s and [market]'s included; max abs error, ms,
 plain ms and bound ms; for the two BN254 kernels also the latency bound
 and the products this design does) and the contract line
 {"ok": true, "device": {...}}.
@@ -1395,7 +1419,8 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     iters = ((1 << MAIN_PO2) - 40) // 2
     torch.cuda.reset_peak_memory_stats()
     native_before = prove.NATIVE_WITNESSES
-    with CaptureCons() as cap, ForbidCombineRows() as eager:
+    with CaptureCons() as cap, ForbidCombineRows() as eager, \
+            KeepResults(prove, "_gen_witness") as witnesses:
         zero_counts()
         t0 = time.perf_counter()
         res = Executor(image, guests.words([iters]),
@@ -1495,7 +1520,28 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     grid = f"{m}-row grid, {air.name}"
     cons = dict(max_abs_err=cons_check.max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, shape=grid, plain_shape=grid)
-    return launches, cons
+    return launches, cons, witnesses.results[0]
+
+
+class KeepResults:
+    """The return values of every call of `module.name` while active."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.results = module, name, []
+
+    def __enter__(self):
+        self._orig = getattr(self.module, self.name)
+
+        def kept(*args, **kwargs):
+            out = self._orig(*args, **kwargs)
+            self.results.append(out)
+            return out
+
+        setattr(self.module, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._orig)
 
 
 class TimeCalls:
@@ -1718,7 +1764,7 @@ def phase_recursion(dev):
         receipts_verified=len(lifts) + 1, bumped_proof="rejected",
         changed_post_pc="rejected", native_rec_evals=native,
         launches_recursion=json.dumps(rec_launches).replace(" ", ""))
-    return rec_launches, system
+    return rec_launches, system, session
 
 
 def phase_coproc_kernels(dev, sm_clocks_per_s, lat):
@@ -2427,7 +2473,8 @@ def phase_market(dev, ps=None):
     say("market", assessor_fills=len(fills), assessor_cycles=cycles,
         assessor_s=f"{t_exec:.3f}", set_root_fulfilled=len(b))
     say("market", launches_market=json.dumps(launches).replace(" ", ""))
-    return launches
+    return launches, [("per_fill", chain_a, len(a)),
+                      ("batch", chain_b, len(b))]
 
 
 # ---------------------------------------------------------------------------
@@ -3117,6 +3164,290 @@ def phase_wrap(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The developer and market tools on the card: the degree audit, the trace
+# checker, data-parallel proving, PoVW and the market services
+# ---------------------------------------------------------------------------
+
+AUDIT_PO2, AUDIT_EXPAND = 5, 16
+DEGREE_GOLDEN = os.path.join(ROOT, "tests", "data",
+                             "torch_degree_golden.npz")
+DEBUG_PO2 = 8  # the CPU plain path's small witness
+DEBUG_ROW = 3  # the flipped word: an active row's rdv limb
+
+
+def audit_cases(dev):
+    """(name, AIR, publics on `dev`) of the four audited AIRs, with the
+    publics of tests/data/make_torch_degree_golden.py."""
+    from boundless_tpu_torch import cli
+    from boundless_tpu_torch.air import keccak as K
+    from boundless_tpu_torch.air import rv32im as R
+    from boundless_tpu_torch.core import field as F
+    from boundless_tpu_torch.recursion import air as rair
+    from boundless_tpu_torch.recursion import vm
+
+    rng = np.random.default_rng(0)
+    states = rng.integers(0, F.P, size=(K.max_perms(AUDIT_PO2),
+                                        1 + 2 * K.LIMBS), dtype=np.uint32)
+    return [(name, R.Rv32imAir(name == "rv32im"),
+             cli.rv32im_audit_pub(np.random.default_rng(0), dev))
+            for name in ("rv32im", "rv32i")] + [
+        ("recursion", rair.AIR, rair.pub_array([0] * vm.PUB_VALS, dev)),
+        ("keccak", K.KeccakAir(), K.PublicValues(
+            states=torch.from_numpy(states.astype(np.int32)).to(dev)))]
+
+
+def phase_audit(dev):
+    """`degree.assert_degrees` on the card at po2 5, expand 16, for rv32im,
+    rv32i, RecursionAir and KeccakAir: every lane's degree equal to the
+    JAX golden, the NTT kernel launched."""
+    from boundless_tpu_torch.air import degree as DA
+
+    gold = np.load(DEGREE_GOLDEN)
+    zero_counts()
+    for name, air, pub in audit_cases(dev):
+        t0 = time.perf_counter()
+        degs = DA.assert_degrees(air, pub, po2=AUDIT_PO2,
+                                 expand=AUDIT_EXPAND, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {"index": [d.index for d in degs],
+               "lane": [d.lane for d in degs],
+               "kind": [d.kind for d in degs],
+               "degree": [d.degree for d in degs]}
+        bad = [k for k, v in got.items()
+               if v != gold[f"{name}/{k}"].tolist()]
+        if bad:
+            raise AssertionError(f"[audit] {name}: {bad} differ from the JAX "
+                                 f"golden")
+        n = 1 << AUDIT_PO2
+        worst = max(got["degree"])
+        say("audit", air=name, constraints=len(set(got["index"])),
+            lanes=len(degs), po2=AUDIT_PO2, expand=AUDIT_EXPAND,
+            worst_degree=worst, worst_mult=round(worst / (n - 1), 3),
+            declared=air.max_degree, budget=DA.degree_budget(AUDIT_PO2),
+            vs_jax="equal", s=f"{secs:.3f}")
+    launches = all_counts()
+    if launches["ntt_sub_transform"] <= 0:
+        raise AssertionError(f"[audit] the NTT kernel was not launched: "
+                             f"{launches}")
+    say("audit", launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+def tampered_rdv(data):
+    """`data` with DEBUG_ROW's rdv limb bumped by one."""
+    from boundless_tpu_torch.air.rv32im import DC
+    from boundless_tpu_torch.core import field as F
+
+    bad = data.copy()
+    bad[DEBUG_ROW, DC.rdv.start] = (bad[DEBUG_ROW, DC.rdv.start] + 1) % F.P
+    return bad
+
+
+def phase_debug(dev, w):
+    """`debug.check_constraints` on the card on the main path's po2-17
+    rv32i witness `w`: ok; with one word flipped, failures naming the same
+    constraints as the CPU plain path on a po2-8 witness flipped the same
+    way."""
+    from boundless_tpu_torch.air import debug
+    from boundless_tpu_torch.core import field as F
+    from boundless_tpu_torch.zkvm import guests, prove, witness
+    from boundless_tpu_torch.zkvm.executor import Executor
+
+    air = prove._AIRS["rv32i"]
+
+    def check(w, data, device):
+        t0 = time.perf_counter()
+        out = debug.check_constraints(
+            air, F.fp(w.ctrl, device), F.fp(data, device),
+            witness.to_public_values(w.pub, device))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    data = witness.data_for_variant(w.data, "rv32i")
+    (ok, failures), secs = check(w, data, dev)
+    if not ok:
+        raise AssertionError(f"[debug] the main witness fails {failures}")
+    (ok_bad, bad), bad_secs = check(w, tampered_rdv(data), dev)
+    image = guests.loop_guest()
+    seg = Executor(image, guests.words([((1 << DEBUG_PO2) - 40) // 2]),
+                   segment_po2=DEBUG_PO2).run().segments[0]
+    small = prove._gen_witness(image, seg)
+    (ok_cpu, cpu), cpu_secs = check(
+        small, tampered_rdv(witness.data_for_variant(small.data, "rv32i")),
+        "cpu")
+    names = [i for i, _ in bad]
+    if ok_bad or not bad or names != [i for i, _ in cpu]:
+        raise AssertionError(f"[debug] tampered: card {bad}, CPU plain "
+                             f"path {cpu}")
+    say("debug", air=air.name, po2=MAIN_PO2, rows=data.shape[0],
+        witness="main", ok=ok, s=f"{secs:.3f}",
+        tampered_failures=json.dumps(bad).replace(" ", ""),
+        tampered_s=f"{bad_secs:.3f}",
+        cpu_po2=DEBUG_PO2, cpu_failures=json.dumps(cpu).replace(" ", ""),
+        cpu_s=f"{cpu_secs:.3f}", indices_vs_cpu="equal")
+
+
+def phase_mesh(dev):
+    """The main path's loop-guest session (two po2-17 segments) proved on
+    a world-size-1 mesh (`parallel/mesh.py`), each proof word for word
+    equal to `stark.prove` of the same trace on the card; a tp of 2
+    refused."""
+    from boundless_tpu_torch import convert
+    from boundless_tpu_torch.core import field as F
+    from boundless_tpu_torch.parallel import mesh as M
+    from boundless_tpu_torch.prover import stark
+    from boundless_tpu_torch.zkvm import guests, prove, witness
+    from boundless_tpu_torch.zkvm.executor import Executor
+
+    image = guests.loop_guest()
+    res = Executor(image, guests.words([((1 << MAIN_PO2) - 40) // 2]),
+                   segment_po2=MAIN_PO2).run()
+    if len(res.segments) != 2:
+        raise AssertionError(f"[mesh] {len(res.segments)} segments")
+    variant = prove.air_variant_of(image, res.segments[0])
+    air = prove._AIRS[variant]
+    ws = [prove._gen_witness(image, seg) for seg in res.segments]
+    data = [F.fp(witness.data_for_variant(w.data, variant), dev) for w in ws]
+    pubs = [witness.to_public_values(w.pub, dev) for w in ws]
+    ctrl, _ = prove._image_ctrl(image, MAIN_PO2, prove.DEFAULT_PS, dev)
+    mesh = M.make_mesh()
+    if mesh.shape != {"dp": torch.cuda.device_count(), "tp": 1}:
+        raise AssertionError(f"[mesh] mesh {mesh.shape}")
+    fn, shard_fn = M.shard_batched_prover(air, MAIN_PO2, prove.DEFAULT_PS,
+                                          mesh)
+    zero_counts()
+    t0 = time.perf_counter()
+    proofs = fn(*shard_fn(data, pubs, ctrl))
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    launches = all_counts()
+    if min(launches[k] for k in ("poseidon2_sponge", "ntt_sub_transform",
+                                 "cons_eval")) <= 0:
+        raise AssertionError(f"[mesh] skipped a kernel: {launches}")
+    t0 = time.perf_counter()
+    singles = [stark.prove(air, d, p, MAIN_PO2, prove.DEFAULT_PS, ctrl)
+               for d, p in zip(data, pubs)]
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    for i, (got, want) in enumerate(zip(proofs, singles)):
+        g, s_ = convert.proof_to_numpy(got), convert.proof_to_numpy(want)
+        if sorted(g) != sorted(s_) or any(not np.array_equal(g[k], s_[k])
+                                          for k in g):
+            raise AssertionError(f"[mesh] segment {i}: the mesh proof "
+                                 f"differs from stark.prove")
+        if got.data_root.device != dev:
+            raise AssertionError("[mesh] a proof did not run on the card")
+    try:
+        M.shard_batched_prover(air, MAIN_PO2, prove.DEFAULT_PS,
+                               M.make_mesh(devices=[dev, dev], dp=1))
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("[mesh] a mesh with tp = 2 was accepted")
+    say("mesh", mesh=json.dumps(mesh.shape).replace(" ", ""),
+        segments=len(proofs), variant=variant, po2=MAIN_PO2,
+        mesh_s=f"{t_mesh:.3f}", single_s=f"{t_single:.3f}",
+        vs_stark_prove="equal", tp2="refused",
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+def phase_povw(system, session):
+    """PoVW on [recursion]'s session receipt: `record_receipt` credits its
+    segments << MAIN_PO2 cycles after `verify_session` on the card; a
+    second record of the claim and a forged segment count raise; the
+    closed epoch mints."""
+    from boundless_tpu_torch.market import povw
+
+    clock = [0.0]
+    log = povw.WorkLog(epoch_seconds=60.0, clock=lambda: clock[0])
+    zero_counts()
+    t0 = time.perf_counter()
+    cycles = log.record_receipt("prover1", session, system,
+                                seg_po2=MAIN_PO2)
+    secs = time.perf_counter() - t0
+    launches = all_counts()
+    c = session.root.claim
+    segments = int(c.post_segments) - int(c.pre_segments)
+    if segments != 2 or cycles != segments << MAIN_PO2:
+        raise AssertionError(f"[povw] credited {cycles} cycles for "
+                             f"{segments} segments")
+    if launches["poseidon2_sponge"] <= 0:
+        raise AssertionError(f"[povw] verify_session launched no sponge: "
+                             f"{launches}")
+    forged = dataclasses.replace(session, root=dataclasses.replace(
+        session.root, claim=dataclasses.replace(
+            c, post_segments=c.post_segments + 100)))
+    for what, receipt in (("again", session), ("forged", forged)):
+        try:
+            log.record_receipt("prover2", receipt, system, seg_po2=MAIN_PO2)
+        except ValueError:
+            continue
+        raise AssertionError(f"[povw] a {what} receipt was credited")
+    clock[0] = 60.0
+    mints = povw.MintCalculator(log).mint_for_epoch(0)
+    if mints != {"prover1": 1_000_000}:
+        raise AssertionError(f"[povw] mints {mints}")
+    say("povw", cycles=cycles, segments=segments, record_s=f"{secs:.3f}",
+        again="refused", forged_segments="refused",
+        mints=json.dumps(mints).replace(" ", ""),
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+def phase_services(chains):
+    """The market services on [market]'s chains: `IndexerService` syncs
+    each chain's events (locked and fulfilled counts equal the phase's
+    fills) and its localhost API answers /stats; `Indexer` and `Slasher`
+    run once."""
+    import urllib.request
+
+    from boundless_tpu_torch.market import indexer_service, services
+
+    for mode, chain, fills in chains:
+        svc = indexer_service.IndexerService(chain)
+        t0 = time.perf_counter()
+        ingested = svc.sync()
+        secs = time.perf_counter() - t0
+        stats = svc.stats()
+        locked = sum(e["kind"] == "RequestLocked" for e in svc.events(0))
+        if (stats["total_requests"], locked, stats["total_fulfilled"]) != (
+                fills, fills, fills):
+            raise AssertionError(f"[services] {mode}: {stats}, {locked} "
+                                 f"locked, {fills} fills")
+        server, thread = indexer_service.make_indexer_server(svc)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/stats"
+            with urllib.request.urlopen(url, timeout=10) as r:
+                served = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+        if served != stats:
+            raise AssertionError(f"[services] /stats {served} vs {stats}")
+        agg = services.Indexer(chain).sync()
+        if (agg.total_fulfilled, agg.total_volume) != (
+                fills, stats["total_volume"]):
+            raise AssertionError(f"[services] Indexer {agg}")
+        slasher = services.Slasher(chain, "watcher", poll=0.01)
+        slasher.start()
+        time.sleep(0.05)
+        slasher.stop()
+        slasher._thread.join(timeout=5)
+        if slasher.slashed:
+            raise AssertionError(f"[services] slashed {slasher.slashed}")
+        say("services", mode=mode, events=ingested, sync_s=f"{secs:.4f}",
+            requests=stats["total_requests"], locked=locked,
+            fulfilled=stats["total_fulfilled"],
+            volume=stats["total_volume"], api_stats="equal",
+            provers=json.dumps(svc.provers()).replace(" ", ""),
+            indexer="equal", slashed=0)
+
+
 KERNELS = (
     ("poseidon2_sponge", "boundless_tpu_torch/csrc/poseidon2.cu",
      "boundless_tpu/core/poseidon2_pallas.py:358"),
@@ -3153,15 +3484,22 @@ def main():
              "ntt_sub_transform": phase_kernel_ntt(dev, sm_clocks_per_s)}
     cons_check = Checker()
     phase_golden(dev, cons_check)
-    launches, stats["cons_eval"] = phase_main(dev, cons_check,
-                                              sm_clocks_per_s)
+    launches, stats["cons_eval"], main_witness = phase_main(
+        dev, cons_check, sm_clocks_per_s)
+    audit_launches = timed_phase("audit", lambda: phase_audit(dev))
+    timed_phase("debug", lambda: phase_debug(dev, main_witness))
+    mesh_launches = timed_phase("mesh", lambda: phase_mesh(dev))
     phase_recursion_kernels(dev, sm_clocks_per_s, lat)
-    rec_launches, rec_system = phase_recursion(dev)
+    rec_launches, rec_system, rec_session = phase_recursion(dev)
+    povw_launches = timed_phase("povw", lambda: phase_povw(rec_system,
+                                                           rec_session))
     phase_coproc_kernels(dev, sm_clocks_per_s, lat)
     coproc_launches, coproc_system = phase_coproc(dev, cons_check)
     cluster_launches = timed_phase("cluster", lambda: phase_cluster(
         dev, rec_system, coproc_system))
-    market_launches = timed_phase("market", lambda: phase_market(dev))
+    market_launches, market_chains = timed_phase(
+        "market", lambda: phase_market(dev))
+    timed_phase("services", lambda: phase_services(market_chains))
     stats["p254_sponge"] = timed_phase("p254", lambda: phase_kernel_p254(
         dev, sm_clocks_per_s, lat))
     stats["bn254_msm"] = timed_phase("msm", lambda: phase_kernel_msm(
@@ -3177,7 +3515,10 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name],
+         "launches_audit": audit_launches[name],
+         "launches_mesh": mesh_launches[name],
          "launches_recursion": rec_launches.get(name, 0),
+         "launches_povw": povw_launches[name],
          "launches_coproc": coproc_launches.get(name, 0),
          "launches_cluster": cluster_launches.get(name, 0),
          "launches_market": market_launches.get(name, 0),

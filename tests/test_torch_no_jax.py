@@ -13,8 +13,11 @@ digest, a Groth16 proof and its pairing check, and the MSM's plain
 version, and a dev-mode session of the echo guest through the port's
 cluster (`ClusterApi`, worker threads, the receipt's wire format), the
 market's modules: `cli requestor submit` through a dev-mode broker and the
-in-guest ECDSA assessor over one signed fill; no `boundless_tpu` module
-may load. The
+in-guest ECDSA assessor over one signed fill; a degree audit of a
+synthetic AIR, `check_constraints` on the echo witness (valid, and a
+tampered word refused), PoVW's `record_receipt` on the dev-mode session
+and an `IndexerService` sync of a scripted chain; no `boundless_tpu`
+module may load. The
 sources of the port and of `chip_smoke.py` must not import either package.
 """
 
@@ -41,6 +44,24 @@ receipt = prove.prove_segment(guests.echo(), res.segments[0], prove.TEST_PS,
                               device="cpu")
 assert prove.verify_segment(receipt, prove.TEST_PS)
 assert prove.NATIVE_WITNESSES == 1 and prove.REPLAY_WITNESSES == 0
+from boundless_tpu_torch.air import debug, degree, dsl
+from boundless_tpu_torch.core import field as F
+from boundless_tpu_torch.zkvm import witness
+w = witness.trace_segment(guests.echo(), res.segments[0], 8)
+wpub = witness.to_public_values(w.pub)
+air = prove._AIRS["rv32im"]
+assert debug.check_constraints(air, F.fp(w.ctrl), F.fp(w.data), wpub) == (
+    True, [])
+bad = w.data.copy()
+bad[3, 0] = (bad[3, 0] + 1) % F.P
+assert not debug.check_constraints(air, F.fp(w.ctrl), F.fp(bad), wpub)[0]
+class Cube(dsl.Air):
+    name, data_cols, max_degree = "cube", 1, 3
+    def constraints(self, alg, now, nxt, globals_, pub):
+        x = now.data[0]
+        return [alg.mul(alg.mul(x, x), x)]
+degs = degree.assert_degrees(Cube(), (), po2=4, device="cpu")
+assert [d.degree for d in degs] == [3 * 15]
 from boundless_tpu_torch.prover import stark
 from boundless_tpu_torch.recursion import air as rair, succinct, vm
 lifted = succinct.DevModeSystem().lift(receipt)
@@ -107,12 +128,18 @@ assert capi.session_status(job)["status"] == "SUCCEEDED"
 session = serde.load_session_receipt(capi.receipt(job))
 assert session.journal == guests.words([11, 22])
 assert succinct.verify_session(session, ctx.succinct)
+from boundless_tpu_torch.market import povw
+assert povw.WorkLog().record_receipt("p1", session, ctx.succinct,
+                                     seg_po2=8) == 1 << 8
 for must in ("zkvm.secp256k1_guest", "market.types", "market.crypto",
              "market.chain", "market.storage_providers", "market.client",
              "market.deployments", "market.router", "market.batcher",
              "market.order_stream", "market.order_stream_http",
              "market.bench", "market.broker.pipeline", "market.broker.db",
-             "market.broker.cluster_prover", "market.broker.telemetry"):
+             "market.broker.cluster_prover", "market.broker.telemetry",
+             "air.degree", "air.debug", "parallel.mesh", "utils.profiling",
+             "market.povw", "market.services", "market.indexer_service",
+             "utils.config", "utils.service_runner"):
     assert "boundless_tpu_torch." + must in names, must
 import contextlib, io
 from boundless_tpu_torch import cli
@@ -135,6 +162,12 @@ assessed = batcher.Assessor().assess(
     [(req, mtypes.sign_request(req, alice), fill)], "prover1")
 assert assessed.journal == batcher.expected_assessor_journal(
     [(req, None, fill)])
+from boundless_tpu_torch.market import chain as mchain, indexer_service
+market = mchain.MarketChain(lambda f, r: True)
+market.create_account(alice.address, funds=100)
+market.submit_request(req, mtypes.sign_request(req, alice))
+indexer = indexer_service.IndexerService(market)
+assert indexer.sync() == 1 and indexer.stats()["total_requests"] == 1
 loaded = [m for m in sys.modules if m.startswith(("jax", "boundless_tpu"))
           and not m.startswith("boundless_tpu_torch")]
 assert sorted(loaded) == ["boundless_tpu", "jax"], loaded  # placeholders
