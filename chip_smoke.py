@@ -10,13 +10,14 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
   2. build    compiles the kernel libraries with nvcc for sm_90a, one
               nvcc per library, all started together: the Poseidon2 sponge
               (csrc/poseidon2.cu), the NTT sub-transform (csrc/ntt.cu), the
-              p254 sponge (csrc/poseidon254.cu), the MSM (csrc/msm.cu) and
+              p254 sponge (csrc/poseidon254.cu), the MSM (csrc/msm.cu), the
+              exact weighted sum (csrc/bbmm.cu) and
               the generated fused constraint kernels of both AIR variants
               (kernels/cons.py), plus the probes and the spin kernel of
               device_ms; prints nvcc
               seconds, registers, spills and blocks per SM, and for the
-              two BN254 libraries each kernel's registers, spills and
-              stack frame.
+              two BN254 libraries and the weighted sum each kernel's
+              registers, spills and stack frame.
   3. probe    independent chains of bb::mul and of bb::add on every SM:
               achieved operations and 32-bit instructions per second beside
               the published issue rate the bounds use; one warp's dependent
@@ -47,7 +48,16 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               zero-skip shifted load, intt's and coset_interpolate's scaled
               stores) at the main path's shapes. Times the NTT at 2^19 x
               392 (and each of its two launches) and the data LDE with CUDA
-              events.
+              events. Weighted sum ([bbmm], csrc/bbmm.cu): the kernel
+              against its plain version, word for word, at BBMM_SHAPES:
+              the DEEP combinations, α-combines, LogUp group and verifier
+              rows the main, recursion and KeccakAir proofs pass, K = 1,
+              M not a multiple of the block and every word P - 1 at the
+              widest K; bb_weighted_sum_t must refuse the rv32i (K, M)
+              constraint rows (there is no transposed kernel); kernel ms,
+              plain ms and bound at BBMM_TIMED, and the
+              reference's int8 limb product through torch._int_mm for
+              scale (never on the path).
   5. golden   the port's po2-8 TEST_PS proofs on the card equal the JAX
               reference proofs stored in tests/data/torch_golden_po2_8.npz;
               every kernel launched in them; the fused constraint kernel's
@@ -231,9 +241,14 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               rows and variables, the prover mode and the peak device
               memory.
 The phases from [audit] on, less [recursion] and [coproc], print their
-seconds. The last two lines are
+seconds. [main], [recursion] and [coproc] record the shapes of their
+weighted sums: every BBMM_SHAPES shape of a path must be among them, the
+weighted-sum kernel must have launched on main, mesh, recursion, coproc,
+cluster, market and wrap, and the plain version must have run on the
+card only in the checks: [bbmm]'s, and the constraint kernel's plain
+version (its α-combine is the plain weighted sum). The last two lines are
 the kernel table (each kernel's launches on its own path, on the main
-path for the segment prover's three kernels, [wrap] for the p254 sponge
+path for the segment prover's four kernels, [wrap] for the p254 sponge
 and [groth16] for the MSM, and on every other path, [audit]'s, [mesh]'s,
 [povw]'s, [cluster]'s and [market]'s included; max abs error, ms,
 plain ms and bound ms; for the two BN254 kernels also the latency bound
@@ -296,6 +311,40 @@ NTT_GLUE_SHAPES = (("intt", 1 << 17, 392, 1),
                    ("coset_evaluate", 1 << 17, 48, 4),
                    ("coset_evaluate", 1 << 17, 16, 2),
                    ("coset_interpolate", 1 << 19, 4, 1))
+# The exact weighted sum (core/bbmm.py) at the shapes its paths give it:
+# (what, path, M, K, W). K and W are those the port's proofs
+# pass (K does not change with the size; [main], [recursion] and [coproc]
+# record the shapes of their calls and every shape of a path must be
+# among them): the main proof's DEEP combination (ctrl + data + accum =
+# 480 columns weighed at z and zg together, then the 16 check columns)
+# and its LogUp accumulator's widest group; the verifier's opened rows at
+# 100 queries (z and zg apart); a rec_po2-20 lift's α-combine on its 4N,
+# 2N and N grids and its DEEP combination; KeccakAir's at kec_po2 10.
+# Then the edge cases: K = 1, M not a multiple of the kernel's 128-row
+# block, and every word P - 1 at the widest K of each width ("max").
+BBMM_SHAPES = (("main DEEP z+zg", "main", 1 << 18, 480, 8),
+               ("main DEEP check", "main", 1 << 18, 16, 4),
+               ("main accum group", "main", 1 << 17, 27, 4),
+               ("main verify rows", "verify", 100, 480, 4),
+               ("lift alpha 4N", "recursion", 1 << 22, 73, 4),
+               ("lift alpha 2N", "recursion", 1 << 21, 53, 4),
+               ("lift alpha N", "recursion", 1 << 20, 55, 4),
+               ("lift DEEP z+zg", "recursion", 1 << 21, 136, 8),
+               ("KeccakAir alpha 4N", "keccak", 1 << 12, 8080, 4),
+               ("KeccakAir DEEP z+zg", "keccak", 1 << 11, 4104, 8),
+               ("K=1", None, 1000, 1, 4),
+               ("M=2^17+3", None, (1 << 17) + 3, 33, 8),
+               ("max KeccakAir alpha", None, 1 << 12, 8080, 4),
+               ("max KeccakAir DEEP", None, 1 << 11, 4104, 8))
+BBMM_TIMED = ("main DEEP z+zg", "main DEEP check", "main verify rows",
+              "lift alpha 4N", "lift DEEP z+zg", "KeccakAir alpha 4N",
+              "KeccakAir DEEP z+zg")
+# The (K, M) constraint rows of the rv32i 4N grid, two classes: the shape
+# `cons_eval.combine_rows` gives bb_weighted_sum_t, which only the CPU and
+# the constraint kernel's plain version run; on the card it must refuse.
+BBMM_TRANSPOSED_REFUSED = (773, 1 << 19, 8)
+BBMM_SEEN: dict = {}  # path -> {(M, K, W)} of its calls
+PLAIN_IN_CONS_CHECKS = 0  # plain weighted sums on the card in PlainBbmm
 MAIN_PO2 = 17
 REC_PO2 = 20  # the recursion proofs' rows (the lift is 1,035,939 wire rows)
 # The recursion proofs' system: 50 queries at rate 1/2 (the JAX package's
@@ -430,6 +479,7 @@ def phase_device():
 
 def phase_build():
     """One nvcc per library, all started together."""
+    from boundless_tpu_torch.kernels import bbmm as BK
     from boundless_tpu_torch.kernels import build
     from boundless_tpu_torch.kernels import cons as CK
     from boundless_tpu_torch.kernels import msm as MK
@@ -440,6 +490,7 @@ def phase_build():
 
     jobs = {"bt_poseidon2": P2K._lib, "bt_ntt": NK._lib,
             "bt_poseidon254": P254K._lib, "bt_msm": MK._lib,
+            "bt_bbmm": BK._lib,
             "bt_issue_probe": probe_lib, "bt_spin": spin_lib,
             "bt_bn_probe": bn_probe_lib}
     for variant, air in prove._AIRS.items():
@@ -492,7 +543,7 @@ def phase_build():
         say("build", library="bt_poseidon2", registers_spill_bytes=",".join(
             f"{lanes.get(k, 'tree_top')}:{regs}/{spill}"
             for _, k, spill, regs in funcs))
-    for name in ("bt_poseidon254", "bt_msm"):  # by kernel
+    for name in ("bt_poseidon254", "bt_msm", "bt_bbmm"):  # by kernel
         if name in build.PTXAS_LOG:
             say("build", library=name, registers_spill_stack_bytes=
                 ptxas_summary(build.PTXAS_LOG[name]))
@@ -1098,6 +1149,145 @@ def phase_kernel_ntt(dev, sm_clocks_per_s):
                 plain_shape=f"{n}x{c}")
 
 
+def bbmm_bound_ms(m: int, k: int, w: int, sm_clocks_per_s: float):
+    """Bound of an (M, K) x (K, W) weighted sum: the values and weights
+    read once and the output written once (4 bytes a word) against M K W
+    32x32->64 products, each one FMA-pipe issue (an IMAD.WIDE.U32 that
+    adds into its sum, as the constraint kernel's combine counts it; the
+    adds of the folds and the final reductions are not counted)."""
+    nbytes = 4 * (m * k + k * w + m * w)
+    return bound_ms(nbytes, 0, 0, sm_clocks_per_s, extra=(m * k * w, 0, 0))
+
+
+def bbmm_case(rng, m, k, w, full, dev):
+    """Values (M, K) and (K, W) weights: random words, or every word
+    P - 1 when `full`."""
+    from boundless_tpu_torch.core import field as F
+
+    shape = (m, k)
+    if full:
+        v = torch.full(shape, F.P - 1, dtype=torch.int32, device=dev)
+        wt = torch.full((k, w), F.P - 1, dtype=torch.int32, device=dev)
+    else:
+        v, wt = rand_words(rng, shape, dev), rand_words(rng, (k, w), dev)
+    return v, wt
+
+
+def int_mm_limbs_ms(m: int, k: int, w: int, dev) -> float:
+    """For scale only (never on the path): ms of the reference's method on
+    this card's int8 tensor cores, the (5 M, K) x (K, 5 W) int8 limb
+    product through torch._int_mm (K and 5 W padded to multiples of 8),
+    without the limb split and the fold."""
+    kp, np_ = -(-k // 8) * 8, -(-5 * w // 8) * 8
+    a = torch.randint(0, 128, (5 * m, kp), dtype=torch.int8, device=dev)
+    b = torch.randint(0, 128, (kp, np_), dtype=torch.int8, device=dev)
+    return cuda_ms(lambda: torch._int_mm(a, b), 5)
+
+
+def phase_kernel_bbmm(dev, sm_clocks_per_s):
+    """The weighted sum against its plain version at BBMM_SHAPES, word for
+    word, and timed at BBMM_TIMED; bb_weighted_sum_t refuses the (K, M)
+    matrix of BBMM_TRANSPOSED_REFUSED on the card."""
+    from boundless_tpu_torch.core import bbmm as B
+    from boundless_tpu_torch.kernels import bbmm as BK
+
+    rng = np.random.default_rng(SEED + 7)
+    check = Checker()
+    stats = None
+    for what, path, m, k, w in BBMM_SHAPES:
+        v, wt = bbmm_case(rng, m, k, w, what.startswith("max"), dev)
+        kernel = lambda v=v, wt=wt: B.bb_weighted_sum(v, wt)  # noqa: E731
+        plain = lambda v=v, wt=wt: B.bb_weighted_sum_plain(v, wt)  # noqa: E731
+        before = BK.LAUNCHES
+        got = kernel()
+        if BK.LAUNCHES != before + 1:
+            raise AssertionError(f"[bbmm] {what}: {BK.LAUNCHES - before} "
+                                 f"launches, expected 1")
+        check(got, plain(), f"bb_weighted_sum {what} {m}x{k}x{w}")
+        fields = {}
+        if what in BBMM_TIMED:
+            ms = cuda_ms(kernel, 10)
+            plain_ms = cuda_ms(plain, 1)
+            bms, by = bbmm_bound_ms(m, k, w, sm_clocks_per_s)
+            fields = dict(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                          bound_ms=f"{bms:.4f}", bound_by=by,
+                          kernel_over_bound=f"{ms / bms:.2f}")
+            if what in ("main DEEP z+zg", "lift alpha 4N"):
+                fields["int_mm_limbs_ms"] = f"{int_mm_limbs_ms(m, k, w, dev):.4f}"
+            if stats is None:  # the main path's largest call
+                stats = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, shape=f"{m}x{k}x{w}",
+                             plain_shape=f"{m}x{k}x{w}")
+        say("bbmm", shape=what, path=path or "-", m=m, k=k, w=w,
+            tolerance=0, equal="yes", **fields)
+        del v, wt, got
+    k, m, w = BBMM_TRANSPOSED_REFUSED
+    rows = torch.empty((k, m), dtype=torch.int32, device=dev)
+    before = BK.LAUNCHES, B.PLAIN_ON_CUDA
+    try:
+        B.bb_weighted_sum_t(rows, rand_words(rng, (k, w), dev))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("[bbmm] bb_weighted_sum_t ran on the card")
+    if (BK.LAUNCHES, B.PLAIN_ON_CUDA) != before:
+        raise AssertionError("[bbmm] the refused transposed call launched")
+    say("bbmm", shape="combine_rows rv32i (K, M)", k=k, m=m, w=w,
+        refused=json.dumps(refusal))
+    del rows
+    say("bbmm", checked=check.checked, max_abs_err=check.max_err,
+        plain_calls_on_cuda_in_checks=B.PLAIN_ON_CUDA)
+    stats["max_abs_err"] = check.max_err
+    return stats, B.PLAIN_ON_CUDA
+
+
+class RecordBbmm:
+    """Records (M, K, W) of every weighted-sum launch while active into
+    BBMM_SEEN[path]."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        from boundless_tpu_torch.kernels import bbmm as BK
+
+        seen = BBMM_SEEN.setdefault(self.path, set())
+        self._bk, self._orig = BK, BK.weighted_sum
+
+        def weighted_sum(values, weights):
+            seen.add((*values.shape, weights.shape[1]))
+            return self._orig(values, weights)
+
+        BK.weighted_sum = weighted_sum
+        return self
+
+    def __exit__(self, *exc):
+        self._bk.weighted_sum = self._orig
+
+
+def check_bbmm_paths(plain_checks: int):
+    """Every BBMM_SHAPES shape of a path was a call of that path, and the
+    plain version ran on the card only in the checks: `plain_checks` in
+    [bbmm], and PLAIN_IN_CONS_CHECKS in the constraint kernel's plain
+    version."""
+    from boundless_tpu_torch.core import bbmm as B
+
+    plain_checks += PLAIN_IN_CONS_CHECKS
+    for what, path, m, k, w in BBMM_SHAPES:
+        if path is not None and (m, k, w) not in BBMM_SEEN.get(path, ()):
+            raise AssertionError(f"[bbmm] {what} {(m, k, w)} is not a call "
+                                 f"of [{path}]: {sorted(BBMM_SEEN.get(path, ()))}")
+    if B.PLAIN_ON_CUDA != plain_checks:
+        raise AssertionError(f"[bbmm] the plain version ran "
+                             f"{B.PLAIN_ON_CUDA - plain_checks} times on the "
+                             f"card outside the checks")
+    say("bbmm", path_shapes="all seen on their paths",
+        shapes_seen=json.dumps({p: len(v) for p, v in BBMM_SEEN.items()}
+                               ).replace(" ", ""),
+        plain_on_cuda_in_cons_checks=PLAIN_IN_CONS_CHECKS,
+        plain_on_cuda_outside_checks=B.PLAIN_ON_CUDA - plain_checks)
+
+
 class CaptureCons:
     """Records the inputs of every constraint-kernel call while active."""
 
@@ -1137,14 +1327,44 @@ class ForbidCombineRows:
         self._ce.combine_rows = self._orig
 
 
+class PlainBbmm:
+    """While active, the weighted sums (`core/bbmm`) run their plain
+    version, which the eager constraints (the LogUp groups) and
+    `combine_rows` call: the constraint kernel's plain version launches
+    no kernel, or this raises. Adds the plain calls it saw on the card to
+    PLAIN_IN_CONS_CHECKS. Used only with no worker threads running."""
+
+    def __enter__(self):
+        from boundless_tpu_torch.core import bbmm as B
+        from boundless_tpu_torch.kernels import bbmm as BK
+
+        self._b, self._bk = B, BK
+        self._orig = B.bb_weighted_sum, B.bb_weighted_sum_t
+        self._start = B.PLAIN_ON_CUDA, BK.LAUNCHES
+        B.bb_weighted_sum = B.bb_weighted_sum_plain
+        B.bb_weighted_sum_t = B.bb_weighted_sum_t_plain
+        return self
+
+    def __exit__(self, *exc):
+        global PLAIN_IN_CONS_CHECKS
+        B, BK = self._b, self._bk
+        B.bb_weighted_sum, B.bb_weighted_sum_t = self._orig
+        PLAIN_IN_CONS_CHECKS += B.PLAIN_ON_CUDA - self._start[0]
+        if exc[0] is None and BK.LAUNCHES != self._start[1]:
+            raise AssertionError("the constraint kernel's plain version "
+                                 "launched the weighted-sum kernel")
+
+
 def plain_combined(air, args):
-    """The fused kernel's plain version: combine_rows of the plain rows."""
+    """The fused kernel's plain version: combine_rows of the plain rows,
+    every weighted sum in them the plain one (no kernel on the reference)."""
     from boundless_tpu_torch.air import cons_eval as CE
     from boundless_tpu_torch.kernels import cons as CK
 
     *grid, alpha, masks = args
-    return CE.combine_rows(CE.trace(air).kinds, CK.evaluate_plain(air, *grid),
-                           alpha, masks)
+    with PlainBbmm():
+        return CE.combine_rows(CE.trace(air).kinds,
+                               CK.evaluate_plain(air, *grid), alpha, masks)
 
 
 def check_cons(calls, check, what):
@@ -1162,16 +1382,17 @@ def check_cons(calls, check, what):
 
 
 def counts():
+    from boundless_tpu_torch.kernels import bbmm as BK
     from boundless_tpu_torch.kernels import cons as CK
     from boundless_tpu_torch.kernels import ntt as NK
     from boundless_tpu_torch.kernels import poseidon2 as P2K
 
     return {"poseidon2_sponge": P2K.LAUNCHES, "ntt_sub_transform": NK.LAUNCHES,
-            "cons_eval": CK.LAUNCHES}
+            "cons_eval": CK.LAUNCHES, "bb_weighted_sum": BK.LAUNCHES}
 
 
 def all_counts():
-    """Launches of all five kernels (`counts()` and the wrap's two)."""
+    """Launches of all six kernels (`counts()` and the wrap's two)."""
     from boundless_tpu_torch.kernels import msm as MK
     from boundless_tpu_torch.kernels import poseidon254 as P254K
 
@@ -1180,13 +1401,14 @@ def all_counts():
 
 
 def zero_counts():
+    from boundless_tpu_torch.kernels import bbmm as BK
     from boundless_tpu_torch.kernels import cons as CK
     from boundless_tpu_torch.kernels import msm as MK
     from boundless_tpu_torch.kernels import ntt as NK
     from boundless_tpu_torch.kernels import poseidon2 as P2K
     from boundless_tpu_torch.kernels import poseidon254 as P254K
 
-    P2K.LAUNCHES = NK.LAUNCHES = CK.LAUNCHES = 0
+    P2K.LAUNCHES = NK.LAUNCHES = CK.LAUNCHES = BK.LAUNCHES = 0
     P254K.LAUNCHES = MK.LAUNCHES = 0
     for table in (P2K.LAUNCHES_BY_LAYOUT, P254K.LAUNCHES_BY_LAYOUT):
         for layout in table:
@@ -1420,7 +1642,8 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     torch.cuda.reset_peak_memory_stats()
     native_before = prove.NATIVE_WITNESSES
     with CaptureCons() as cap, ForbidCombineRows() as eager, \
-            KeepResults(prove, "_gen_witness") as witnesses:
+            KeepResults(prove, "_gen_witness") as witnesses, \
+            RecordBbmm("main"):
         zero_counts()
         t0 = time.perf_counter()
         res = Executor(image, guests.words([iters]),
@@ -1451,7 +1674,8 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
         raise AssertionError(f"the proof skipped a sponge layout: {layouts}")
     P2K.LAUNCHES = 0
     t0 = time.perf_counter()
-    ok = prove.verify_segment(receipt, prove.DEFAULT_PS)
+    with RecordBbmm("verify"):
+        ok = prove.verify_segment(receipt, prove.DEFAULT_PS)
     t_verify = time.perf_counter() - t0
     verify_launches = P2K.LAUNCHES
     if not ok:
@@ -1725,10 +1949,11 @@ def phase_recursion(dev):
             sponge_by_layout=layouts_now())
         return r
 
-    lifts = [recursion_proof(f"lift{seg.index}", lambda sr=sr, seg=seg:
-                             system.lift(sr, chains[seg.index], seg.pre_mem,
-                                         seg.index))
-             for sr, seg in zip(seg_receipts, res.segments)]
+    with RecordBbmm("recursion"):
+        lifts = [recursion_proof(f"lift{seg.index}", lambda sr=sr, seg=seg:
+                                 system.lift(sr, chains[seg.index],
+                                             seg.pre_mem, seg.index))
+                 for sr, seg in zip(seg_receipts, res.segments)]
     joined = recursion_proof("join", lambda: system.join(*lifts))
     native = vm.NATIVE_EVALS - evals_before
     if native != 3:
@@ -1939,8 +2164,9 @@ def phase_coproc(dev, cons_check):
     evals_before = vm.NATIVE_EVALS
 
     # the guest chain: batch -> lift_keccak; segment -> lift; resolve_coproc
-    kec = counted("keccak_proof guest", lambda: coproc.prove_keccak(
-        ex.keccak_states, KEC_PO2, q50, device=dev))
+    with RecordBbmm("keccak"):
+        kec = counted("keccak_proof guest", lambda: coproc.prove_keccak(
+            ex.keccak_states, KEC_PO2, q50, device=dev))
     if not coproc.verify_keccak(kec, q50):
         raise AssertionError("verify_keccak rejected the guest's batch")
     bumped_pub = kec.states_pub.copy()
@@ -3460,6 +3686,8 @@ KERNELS = (
      "hash_pairs_np (host)"),
     ("bn254_msm", "boundless_tpu_torch/csrc/msm.cu",
      "boundless_tpu/groth16/msm_tpu.py:237"),
+    ("bb_weighted_sum", "boundless_tpu_torch/csrc/bbmm.cu",
+     "boundless_tpu/core/bbmm.py:108"),
 )
 
 
@@ -3482,6 +3710,8 @@ def main():
     stats = {"poseidon2_sponge": phase_kernel_sponge(dev, sm_clocks_per_s,
                                                      lat),
              "ntt_sub_transform": phase_kernel_ntt(dev, sm_clocks_per_s)}
+    stats["bb_weighted_sum"], bbmm_plain_checks = phase_kernel_bbmm(
+        dev, sm_clocks_per_s)
     cons_check = Checker()
     phase_golden(dev, cons_check)
     launches, stats["cons_eval"], main_witness = phase_main(
@@ -3507,10 +3737,21 @@ def main():
     g16_launches = timed_phase("groth16", lambda: phase_groth16(dev))
     wrap_launches = timed_phase("wrap", lambda: phase_wrap(dev))
     # each kernel's launches on its own path: the main path for the
-    # segment prover's three, [wrap] for the p254 sponge, [groth16] for
+    # segment prover's four, [wrap] for the p254 sponge, [groth16] for
     # the MSM (the CI wrap takes the trapdoor prover)
     launches["p254_sponge"] = wrap_launches["p254_sponge"]
     launches["bn254_msm"] = g16_launches["bn254_msm"]
+    check_bbmm_paths(bbmm_plain_checks)
+    idle = [p for p, c in (("main", launches), ("mesh", mesh_launches),
+                           ("recursion", rec_launches),
+                           ("coproc", coproc_launches),
+                           ("cluster", cluster_launches),
+                           ("market", market_launches),
+                           ("wrap", wrap_launches))
+            if c.get("bb_weighted_sum", 0) <= 0]
+    if idle:
+        raise AssertionError(f"the weighted-sum kernel did not launch on "
+                             f"{idle}")
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,5 +1,8 @@
-"""The CUDA NTT and constraint kernels against their plain versions, on the
-card (every NTT option; the fused constraint kernel's α-combined columns).
+"""The CUDA NTT, constraint and weighted-sum kernels against their plain
+versions, on the card (every NTT option; the fused constraint kernel's
+α-combined columns; the weighted sum with row strides, edge shapes and
+both widths it takes, W = 4 and 8, and its refusals: any other width, and
+the transposed view that `bb_weighted_sum_t` passes).
 
 Marked `cuda`: the kernels have no CPU mode, so these skip on a host
 without an NVIDIA GPU. They import no JAX; run them on a GPU host (which
@@ -12,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from boundless_tpu_torch.core import bbmm as B
 from boundless_tpu_torch.core import field as F
 from boundless_tpu_torch.core import ntt as NTT
+from boundless_tpu_torch.kernels import bbmm as BK
 from boundless_tpu_torch.kernels import cons as CK
 from boundless_tpu_torch.kernels import ntt as NK
 from boundless_tpu_torch.zkvm import guests, prove
@@ -104,10 +109,43 @@ def test_ntt_wrapper_rejects_bad_inputs(dev):
         NK.sub_ntt(x, True, words((64, 3), 3, dev))
 
 
+@pytest.mark.parametrize("m,k,w,pad", [
+    (1, 1, 4, 0), (129, 1000, 8, 3), (1000, 33, 4, 5), (300, 16, 4, 0),
+    (1 << 16, 480, 8, 0), (1 << 12, 8112, 4, 0)])
+def test_weighted_sum_equals_plain(dev, m, k, w, pad):
+    host = words((m, k + pad), m, dev)
+    wt = words((k, w), k, dev)
+    before = BK.LAUNCHES
+    got = B.bb_weighted_sum(host[:, pad:], wt)  # row stride K + pad
+    want = B.bb_weighted_sum_plain(host[:, pad:], wt)
+    assert BK.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+def test_weighted_sum_worst_case_and_refusals(dev):
+    full = torch.full((300, 8112), F.P - 1, dtype=torch.int32, device=dev)
+    wt = torch.full((8112, 8), F.P - 1, dtype=torch.int32, device=dev)
+    assert torch.equal(B.bb_weighted_sum(full, wt),
+                       B.bb_weighted_sum_plain(full, wt))
+    with pytest.raises(ValueError):
+        B.bb_weighted_sum(full[::2, ::2], wt[::2])  # no unit stride
+    with pytest.raises(TypeError):
+        B.bb_weighted_sum(full.to(torch.int64), wt)
+    with pytest.raises(ValueError):
+        B.bb_weighted_sum(full, wt[:-1])
+    with pytest.raises(ValueError):
+        B.bb_weighted_sum(full, wt[:, :3].contiguous())  # W not 4 or 8
+    with pytest.raises(ValueError):
+        B.bb_weighted_sum(full, wt[:, :4])  # strided weights
+    with pytest.raises(ValueError):  # a (K, M) matrix: no transposed kernel
+        B.bb_weighted_sum_t(full, wt[:300])
+
+
 @pytest.mark.parametrize("variant", ["rv32i", "rv32im"])
 def test_constraint_kernel_equals_plain(dev, variant):
     """The fused kernel's α-combined columns, two classes and one, equal
-    `combine_rows` of the plain rows."""
+    `combine_rows` of the plain rows, every weighted sum in them (the
+    LogUp groups, the combine) the plain one."""
     po2 = 6
     image = guests.loop_guest()
     seg = Executor(image, guests.words([3]), segment_po2=po2).run().segments[0]
@@ -127,9 +165,14 @@ def test_constraint_kernel_equals_plain(dev, variant):
         before = CK.LAUNCHES
         got = CK.evaluate_combined(air, *evals, globals_, pub, alpha, masks)
         assert CK.LAUNCHES == before + 1
-        want = CK.CE.combine_rows(
-            prog.kinds, CK.evaluate_plain(air, *evals, globals_, pub), alpha,
-            masks)
+        ws_before = BK.LAUNCHES
+        with pytest.MonkeyPatch.context() as mp:  # plain weighted sums
+            mp.setattr(B, "bb_weighted_sum", B.bb_weighted_sum_plain)
+            mp.setattr(B, "bb_weighted_sum_t", B.bb_weighted_sum_t_plain)
+            want = CK.CE.combine_rows(
+                prog.kinds, CK.evaluate_plain(air, *evals, globals_, pub),
+                alpha, masks)
+        assert BK.LAUNCHES == ws_before  # the reference launches no kernel
         assert len(got) == len(want)
         assert all(torch.equal(g, x) for g, x in zip(got, want))
     with pytest.raises(ValueError):
