@@ -6,15 +6,20 @@ reference's bit for bit:
 
   bb_weighted_sum(V, W) == Σ_k mont_mul(V[:, k], W[k, :])
 
+`bb_weighted_sum_blocks(blocks, W)` is the same sum over the columns of
+several matrices side by side, without joining them: the callers pass the
+trees' matrices of a DEEP combination, or the items of an α-combine, as
+they lie.
+
 On a CUDA tensor each call launches the hand-written kernel
-(`kernels/bbmm.py` -> `csrc/bbmm.cu`: 64-bit sums of the raw products, one
-reduction and one Montgomery R^-1 per output) or raises; on a CPU tensor
-it runs the plain version, `bb_weighted_sum_plain`: a chunked exact sum in
-which each product of two reduced words (< 2^62) is reduced mod P before
-it is accumulated in int64, and the R^-1 is applied once at the end.
-There is no fallback from the card to the plain version; `PLAIN_ON_CUDA`
-counts the plain versions' calls on CUDA tensors (made only to check the
-kernel).
+(`kernels/bbmm.py` -> `csrc/bbmm.cu`: the words' bytes through the int8
+tensor cores, one fold and one Montgomery R^-1 per output) or raises; on a
+CPU tensor it runs the plain version, `bb_weighted_sum_plain`: a chunked
+exact sum in which each product of two reduced words (< 2^62) is reduced
+mod P before it is accumulated in int64, and the R^-1 is applied once at
+the end (for blocks: their concatenation, then that sum). There is no
+fallback from the card to the plain version; `PLAIN_ON_CUDA` counts the
+plain versions' calls on CUDA tensors (made only to check the kernel).
 """
 
 from __future__ import annotations
@@ -39,6 +44,16 @@ def bb_weighted_sum(values, weights):
     if values.device.type == "cpu":
         return bb_weighted_sum_plain(values, weights)
     return BK.weighted_sum(values, weights)
+
+
+def bb_weighted_sum_blocks(blocks, weights):
+    """bb_weighted_sum of the column blocks side by side: each block an
+    (M, k_b) matrix or a (1, k_b) row broadcast to all M rows, weights
+    (sum k_b, W) -> (M, W). The kernel reads each block in place on a
+    CUDA tensor; the plain version on a CPU tensor."""
+    if weights.device.type == "cpu":
+        return bb_weighted_sum_blocks_plain(blocks, weights)
+    return BK.weighted_sum_blocks(blocks, weights)
 
 
 def bb_weighted_sum_t(values_t, weights):
@@ -70,6 +85,14 @@ def bb_weighted_sum_plain(values, weights):
         acc += ((v[:, :, None] * wts[None, k0:k0 + step]) % F.P).sum(1)
         acc %= F.P
     return F._reduce(acc)
+
+
+def bb_weighted_sum_blocks_plain(blocks, weights):
+    """Plain version of bb_weighted_sum_blocks: the concatenation of the
+    blocks, then bb_weighted_sum_plain."""
+    m = max(b.shape[0] for b in blocks)
+    return bb_weighted_sum_plain(
+        torch.cat([b.expand(m, b.shape[1]) for b in blocks], 1), weights)
 
 
 def bb_weighted_sum_t_plain(values_t, weights):

@@ -253,13 +253,16 @@ def interpolate(evals):
 
 
 def ext_powers(z, n: int):
-    """Powers z^0..z^{n-1} of an ext element, shape (n, 4), log-doubling."""
+    """Powers z^0..z^{n-1} of an ext element, shape (n, 4), log-doubling:
+    each step one ext_mul of [pows; cur] by cur gives the next len(pows)
+    powers and cur^2."""
     pows = F.ext_ones((1,), z.device)
     cur = z.reshape(1, F.EXT_DEGREE)
     while pows.shape[0] < n:
-        nxt = F.ext_mul(pows, cur.expand(pows.shape))
-        pows = torch.cat([pows, nxt], dim=0)
-        cur = F.ext_mul(cur, cur)
+        both = torch.cat([pows, cur], dim=0)
+        prod = F.ext_mul(both, cur.expand(both.shape))
+        pows = torch.cat([pows, prod[:-1]], dim=0)
+        cur = prod[-1:]
     return pows[:n]
 
 

@@ -29,13 +29,18 @@ __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
   return min(d, d + P);
 }
 
-// a * b * R^-1 mod P. t < P^2 < 2^62 and m * P < 2^63, so t + m * P fits
-// in 64 bits; the quotient is < 2P and one conditional subtract reduces.
-__device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
-  uint64_t t = (uint64_t)a * b;
+// t * R^-1 mod P (Montgomery reduction) for any t < P * 2^32: m * P <
+// P * 2^32 too, so t + m * P fits in 64 bits; the quotient is < 2P and one
+// conditional subtract reduces.
+__device__ __forceinline__ uint32_t redc(uint64_t t) {
   uint32_t m = (uint32_t)t * NP;
   uint32_t r = (uint32_t)((t + (uint64_t)m * P) >> 32);
   return min(r, r - P);
+}
+
+// a * b * R^-1 mod P: t = a * b < P^2.
+__device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
+  return redc((uint64_t)a * b);
 }
 
 }  // namespace bb

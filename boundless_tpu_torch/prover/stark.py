@@ -127,19 +127,24 @@ class VecVal:
         self.v = v
 
 
-def combine_constraints(cons, alpha, at_deep: bool, keep=None):
+def combine_constraints(cons, alpha, at_deep: bool, keep=None, powers=None):
     """Σ_k alpha^k ⊙ C_k -> (..., 4).
 
     `keep` (optional bool list aligned with cons) selects the items that
     enter the sum; alpha-power offsets are assigned over the full list,
-    so per-class partial sums add up to the single-pass combination."""
+    so per-class partial sums add up to the single-pass combination.
+    `powers`: a dict in which the caller keeps alpha's powers by count
+    across calls with the same alpha (the quotient's grids and jobs)."""
     sizes = []
     for c in cons:
         if isinstance(c, VecVal):
             sizes.append(c.v.shape[-2] if at_deep else c.v.shape[-1])
         else:
             sizes.append(1)
-    apows = NTT.ext_powers(alpha, sum(sizes))
+    powers = {} if powers is None else powers
+    if sum(sizes) not in powers:
+        powers[sum(sizes)] = NTT.ext_powers(alpha, sum(sizes))
+    apows = powers[sum(sizes)]
 
     if not at_deep:
         return _combine_pointwise(cons, sizes, apows, keep)
@@ -162,31 +167,43 @@ def combine_constraints(cons, alpha, at_deep: bool, keep=None):
 
 
 def _combine_pointwise(cons, sizes, apows, keep=None):
-    """Pointwise alpha-combine: one exact weighted sum over all base
-    columns (core/bbmm.py), ext items term by term."""
-    base_cols, base_weights = [], []
-    acc = None
+    """Pointwise alpha-combine: one exact weighted sum (core/bbmm.py) over
+    the items as they lie, no concatenation on the card. A base column or
+    a VecVal enters with its alpha powers; an ExtVal item c with power a
+    enters as its four coordinates under the rows a * X^i (i = 0..3):
+    a * c = sum_i c_i (a X^i), coordinate-wise base products, so the sum
+    equals the reference's ext_mul / ext_add terms word for word."""
+    blocks, weights, ext_blocks, ext_powers = [], [], [], []
     k = 0
     for i, (c, g) in enumerate(zip(cons, sizes)):
         if keep is not None and not keep[i]:
             k += g
             continue
         if isinstance(c, VecVal):
-            base_cols.append(c.v)
-            base_weights.append(apows[k: k + g])
+            blocks.append(c.v)
+            weights.append(apows[k: k + g])
         elif isinstance(c, ExtVal):
-            term = F.ext_mul(apows[k].expand(c.v.shape), c.v)
-            acc = term if acc is None else F.ext_add(acc, term)
+            ext_blocks.append(c.v if c.v.dim() == 2 else c.v[None])
+            ext_powers.append(apows[k])
         else:
-            base_cols.append(c[:, None])
-            base_weights.append(apows[k: k + 1])
+            blocks.append(c[:, None])
+            weights.append(apows[k: k + 1])
         k += g
-    if base_cols:
-        m = max(c.shape[0] for c in base_cols)
-        values = torch.cat([c.expand(m, c.shape[1]) for c in base_cols], 1)
-        term = bbmm.bb_weighted_sum(values, torch.cat(base_weights, 0))
-        acc = term if acc is None else F.ext_add(acc, term)
-    return acc
+    if ext_blocks:
+        blocks += ext_blocks
+        weights.append(_times_basis(torch.stack(ext_powers)))
+    if not blocks:
+        return None
+    return bbmm.bb_weighted_sum_blocks(blocks, torch.cat(weights, 0))
+
+
+def _times_basis(a):
+    """(E, 4) ext elements -> (4 E, 4): the rows a_e * X^i, i = 0..3, of
+    each in turn (Montgomery words)."""
+    e = a.shape[0]
+    basis = F.ONE * torch.eye(EXT, dtype=F.I32, device=a.device)
+    return F.ext_mul(a[:, None, :].expand(e, EXT, EXT),
+                     basis[None].expand(e, EXT, EXT)).reshape(e * EXT, EXT)
 
 
 # Below this row count one 4N-grid constraint pass serves every item (the
@@ -405,6 +422,8 @@ def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
                                      [classes[p] for p in order])
         return interpolate_parts(INV_RATE, zip(combs, order))
 
+    powers = {}  # alpha's powers, computed once for every grid and job
+
     def eval_grid(expand: int, jobs):
         step = INV_RATE // expand
 
@@ -419,7 +438,8 @@ def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
         nxt = Columns(*(_ColAccessor(nxt_of(e)) for e in subs))
         cons = air.constraints(BaseAlg(dev), now, nxt, globals_, pub)
         return interpolate_parts(expand, (
-            (combine_constraints(cons, alpha, at_deep=False, keep=keep),
+            (combine_constraints(cons, alpha, at_deep=False, keep=keep,
+                                 powers=powers),
              is_point) for keep, is_point in jobs))
 
     q_coeffs = torch.zeros((INV_RATE * n, EXT), dtype=F.I32, device=dev)
@@ -506,9 +526,9 @@ def prove(air: Air, data_trace, pub, po2: int,
                                   (data_tree, True),
                                   (accum_tree if has_accum else None,
                                    has_accum)) if present]
-    trace_cevals = torch.cat([t.matrix for t in trees], dim=1)
     trace_taps = torch.cat(all_taps, dim=0)
-    combo = _deep_combo_evals(trace_cevals, trace_taps, check_evals,
+    combo = _deep_combo_evals([t.matrix for t in trees], trace_taps,
+                              check_evals,
                               taps_check, beta, z_, zg, z4, n,
                               ps.commit_expand)
 
@@ -537,13 +557,14 @@ def prove(air: Air, data_trace, pub, po2: int,
     )
 
 
-def _deep_combo_evals(trace_evals, trace_taps, check_evals, taps_check,
+def _deep_combo_evals(trace_blocks, trace_taps, check_evals, taps_check,
                       beta, z, zg, z4, n: int, commit_expand: int):
     """combo(x) = Σ_p (Σ_{j∈p} β^j P_j(x) - Σ_{j∈p} β^j v_j) / (x - p),
-    all on the commit domain g*H_{commit_expand*N}."""
-    dev = trace_evals.device
+    all on the commit domain g*H_{commit_expand*N}. `trace_blocks`: the
+    trees' evaluation matrices (ctrl, data, accum), read in place."""
+    dev = check_evals.device
     big = commit_expand * n
-    ct = trace_evals.shape[1]
+    ct = sum(b.shape[1] for b in trace_blocks)
     betas = NTT.ext_powers(beta, 2 * ct + CHECK_COLS)
     w_z, w_zg, w_check = betas[:ct], betas[ct: 2 * ct], betas[2 * ct:]
 
@@ -553,8 +574,9 @@ def _deep_combo_evals(trace_evals, trace_taps, check_evals, taps_check,
         3, big, EXT))
     inv_dens = F.ext_inv(dens)  # (3, cN, 4)
 
-    # z- and zg-weighted sums read the same matrix: one 8-wide weighted sum
-    s_both = bbmm.bb_weighted_sum(trace_evals, torch.cat([w_z, w_zg], 1))
+    # z- and zg-weighted sums read the same matrices: one 8-wide weighted sum
+    s_both = bbmm.bb_weighted_sum_blocks(trace_blocks,
+                                         torch.cat([w_z, w_zg], 1))
     sums = (s_both[:, :EXT], s_both[:, EXT:],
             bbmm.bb_weighted_sum(check_evals, w_check))
 

@@ -11,7 +11,8 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               nvcc per library, all started together: the Poseidon2 sponge
               (csrc/poseidon2.cu), the NTT sub-transform (csrc/ntt.cu), the
               p254 sponge (csrc/poseidon254.cu), the MSM (csrc/msm.cu), the
-              exact weighted sum (csrc/bbmm.cu) and
+              exact weighted sum (csrc/bbmm.cu; and the first design it
+              is timed against, tools/bbmm_rows.cu) and
               the generated fused constraint kernels of both AIR variants
               (kernels/cons.py), plus the probes and the spin kernel of
               device_ms; prints nvcc
@@ -50,14 +51,21 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               392 (and each of its two launches) and the data LDE with CUDA
               events. Weighted sum ([bbmm], csrc/bbmm.cu): the kernel
               against its plain version, word for word, at BBMM_SHAPES:
-              the DEEP combinations, α-combines, LogUp group and verifier
-              rows the main, recursion and KeccakAir proofs pass, K = 1,
-              M not a multiple of the block and every word P - 1 at the
-              widest K; bb_weighted_sum_t must refuse the rv32i (K, M)
-              constraint rows (there is no transposed kernel); kernel ms,
-              plain ms and bound at BBMM_TIMED, and the
-              reference's int8 limb product through torch._int_mm for
-              scale (never on the path).
+              the DEEP combinations, α-combines (as the parent design's
+              callers joined them), LogUp group and verifier rows the
+              main, recursion and KeccakAir proofs pass, K = 1, M not a
+              multiple of the block, K split over blocks and every word
+              P - 1 at the widest K; and at BBMM_BLOCK_SHAPES, the column
+              blocks the paths pass (the trees' matrices, the α-combine's
+              items and ext items as they lie, a broadcast row), each
+              call's launches (two when K is split); bb_weighted_sum_t
+              must refuse the rv32i (K, M) constraint rows (there is no
+              transposed kernel). At BBMM_TIMED the kernel and its first
+              design (tools/bbmm_variants.py, timing only) in turns
+              (device_ms), the plain ms, the bound and the reference's
+              int8 limb product through torch._int_mm for scale (never
+              on the path); at the block shapes the kernel beside the
+              parent's route (torch.cat, then the first design).
   5. golden   the port's po2-8 TEST_PS proofs on the card equal the JAX
               reference proofs stored in tests/data/torch_golden_po2_8.npz;
               every kernel launched in them; the fused constraint kernel's
@@ -241,8 +249,9 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               rows and variables, the prover mode and the peak device
               memory.
 The phases from [audit] on, less [recursion] and [coproc], print their
-seconds. [main], [recursion] and [coproc] record the shapes of their
-weighted sums: every BBMM_SHAPES shape of a path must be among them, the
+seconds. [main], [recursion] and [coproc] record the shapes and column
+blocks of their weighted sums: every BBMM_SHAPES shape and every
+BBMM_BLOCK_SHAPES table of a path must be among them, the
 weighted-sum kernel must have launched on main, mesh, recursion, coproc,
 cluster, market and wrap, and the plain version must have run on the
 card only in the checks: [bbmm]'s, and the constraint kernel's plain
@@ -320,22 +329,53 @@ NTT_GLUE_SHAPES = (("intt", 1 << 17, 392, 1),
 # and its LogUp accumulator's widest group; the verifier's opened rows at
 # 100 queries (z and zg apart); a rec_po2-20 lift's α-combine on its 4N,
 # 2N and N grids and its DEEP combination; KeccakAir's at kec_po2 10.
-# Then the edge cases: K = 1, M not a multiple of the kernel's 128-row
-# block, and every word P - 1 at the widest K of each width ("max").
+# Then the edge cases: K = 1, M not a multiple of the kernel's 64-row
+# block, every word P - 1 at the widest K of each width ("max"), K split
+# over blocks (192 rows) and one word past a block's longest slice.
 BBMM_SHAPES = (("main DEEP z+zg", "main", 1 << 18, 480, 8),
                ("main DEEP check", "main", 1 << 18, 16, 4),
                ("main accum group", "main", 1 << 17, 27, 4),
                ("main verify rows", "verify", 100, 480, 4),
-               ("lift alpha 4N", "recursion", 1 << 22, 73, 4),
-               ("lift alpha 2N", "recursion", 1 << 21, 53, 4),
-               ("lift alpha N", "recursion", 1 << 20, 55, 4),
+               ("lift alpha 4N", None, 1 << 22, 73, 4),
+               ("lift alpha 2N", None, 1 << 21, 53, 4),
+               ("lift alpha N", None, 1 << 20, 55, 4),
                ("lift DEEP z+zg", "recursion", 1 << 21, 136, 8),
-               ("KeccakAir alpha 4N", "keccak", 1 << 12, 8080, 4),
+               ("KeccakAir alpha 4N", None, 1 << 12, 8080, 4),
                ("KeccakAir DEEP z+zg", "keccak", 1 << 11, 4104, 8),
                ("K=1", None, 1000, 1, 4),
                ("M=2^17+3", None, (1 << 17) + 3, 33, 8),
                ("max KeccakAir alpha", None, 1 << 12, 8080, 4),
-               ("max KeccakAir DEEP", None, 1 << 11, 4104, 8))
+               ("max KeccakAir DEEP", None, 1 << 11, 4104, 8),
+               ("split 192 rows", None, 192, 480, 8),
+               ("K=SLICE_MAX+1", None, 1 << 12, 4097, 4))
+# The α-combine shapes above are the base columns alone, as the callers
+# joined them before the ext items entered the sum; the paths now pass
+# column blocks: (what, path, M, ((width, row stride), ...), W), row stride
+# 0 a broadcast row. A DEEP combination reads the trees' matrices (ctrl,
+# data, accum) in place; an α-combine its items as they lie, VecVals'
+# (M, G) matrices and base columns (M, 1) in item order, then each ExtVal's
+# (M, 4) coordinates (under α^k X^i). [main], [recursion] and [coproc]
+# record the tables of their calls; each table of a path must be among
+# them.
+BBMM_BLOCK_SHAPES = (
+    ("main DEEP z+zg blocks", "main", 1 << 18,
+     ((40, 40), (392, 392), (48, 48)), 8),
+    ("lift alpha 4N blocks", "recursion", 1 << 22,
+     ((24, 24), (24, 24), (1, 1), (24, 24), (4, 4)), 4),
+    ("lift alpha 2N blocks", "recursion", 1 << 21,
+     ((1, 1), (24, 24), (1, 1), (1, 1), (1, 1), (1, 1), (24, 24), (4, 4)), 4),
+    ("lift alpha N blocks", "recursion", 1 << 20,
+     ((3, 3), (1, 1), (1, 1), (1, 1), (1, 1), (24, 24), (24, 24))
+     + ((4, 4),) * 9, 4),
+    ("lift DEEP z+zg blocks", "recursion", 1 << 21,
+     ((48, 48), (64, 64), (24, 24)), 8),
+    ("KeccakAir alpha 4N blocks", "keccak", 1 << 12,
+     ((3840, 3840), (320, 320), (320, 320), (1600, 1600), (1600, 1600))
+     + ((100, 100),) * 4 + ((4, 4),) * 8, 4),
+    ("KeccakAir DEEP z+zg blocks", "keccak", 1 << 11,
+     ((32, 32), (4048, 4048), (24, 24)), 8),
+    ("broadcast rows, strided blocks", None, 1000,
+     ((24, 30), (1, 0), (4, 4), (7, 0), (5, 9)), 8))
 BBMM_TIMED = ("main DEEP z+zg", "main DEEP check", "main verify rows",
               "lift alpha 4N", "lift DEEP z+zg", "KeccakAir alpha 4N",
               "KeccakAir DEEP z+zg")
@@ -344,6 +384,7 @@ BBMM_TIMED = ("main DEEP z+zg", "main DEEP check", "main verify rows",
 # the constraint kernel's plain version run; on the card it must refuse.
 BBMM_TRANSPOSED_REFUSED = (773, 1 << 19, 8)
 BBMM_SEEN: dict = {}  # path -> {(M, K, W)} of its calls
+BBMM_TABLES_SEEN: dict = {}  # path -> {(M, ((width, ld), ...), W)}
 PLAIN_IN_CONS_CHECKS = 0  # plain weighted sums on the card in PlainBbmm
 MAIN_PO2 = 17
 REC_PO2 = 20  # the recursion proofs' rows (the lift is 1,035,939 wire rows)
@@ -490,7 +531,7 @@ def phase_build():
 
     jobs = {"bt_poseidon2": P2K._lib, "bt_ntt": NK._lib,
             "bt_poseidon254": P254K._lib, "bt_msm": MK._lib,
-            "bt_bbmm": BK._lib,
+            "bt_bbmm": BK._lib, "bt_bbmm_rows": bbmm_variants().load_rows,
             "bt_issue_probe": probe_lib, "bt_spin": spin_lib,
             "bt_bn_probe": bn_probe_lib}
     for variant, air in prove._AIRS.items():
@@ -519,6 +560,7 @@ def phase_build():
                                f"m512:{NK.blocks_per_sm(9)}")
         for variant, air in prove._AIRS.items():
             occupancy[f"bt_cons_{variant}"] = CK.blocks_per_sm(air)
+        occupancy["bt_bbmm"] = f"w4:{BK.blocks_per_sm(4)},w8:{BK.blocks_per_sm(8)}"
     for name in jobs:
         log = build.PTXAS_LOG.get(name, "")
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
@@ -543,7 +585,7 @@ def phase_build():
         say("build", library="bt_poseidon2", registers_spill_bytes=",".join(
             f"{lanes.get(k, 'tree_top')}:{regs}/{spill}"
             for _, k, spill, regs in funcs))
-    for name in ("bt_poseidon254", "bt_msm", "bt_bbmm"):  # by kernel
+    for name in ("bt_poseidon254", "bt_msm", "bt_bbmm", "bt_bbmm_rows"):
         if name in build.PTXAS_LOG:
             say("build", library=name, registers_spill_stack_bytes=
                 ptxas_summary(build.PTXAS_LOG[name]))
@@ -1184,43 +1226,118 @@ def int_mm_limbs_ms(m: int, k: int, w: int, dev) -> float:
     return cuda_ms(lambda: torch._int_mm(a, b), 5)
 
 
+def bbmm_variants():
+    """tools/bbmm_variants.py: the weighted sum's first design, built and
+    run only to time the kernel against it in [bbmm]."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bbmm_variants
+
+    return bbmm_variants
+
+
+def bbmm_blocks(rng, m, layout, dev):
+    """Random column blocks of `layout` ((width, row stride), ...): a row
+    stride 0 is one broadcast row, a stride past the width a column
+    slice of a wider matrix."""
+    blocks = []
+    for width, ld in layout:
+        if ld == 0:
+            blocks.append(rand_words(rng, (1, width), dev))
+        else:
+            blocks.append(rand_words(rng, (m, ld), dev)[:, :width])
+    return blocks
+
+
+def in_turns(kernel, first, reps: int):
+    """device_ms of `kernel` and `first` in turns (kernel, first, first,
+    kernel) -> (the kernel's two times, the first's two)."""
+    k1, f1 = device_ms(kernel, reps), device_ms(first, reps)
+    f2, k2 = device_ms(first, reps), device_ms(kernel, reps)
+    return (k1, k2), (f1, f2)
+
+
 def phase_kernel_bbmm(dev, sm_clocks_per_s):
-    """The weighted sum against its plain version at BBMM_SHAPES, word for
-    word, and timed at BBMM_TIMED; bb_weighted_sum_t refuses the (K, M)
-    matrix of BBMM_TRANSPOSED_REFUSED on the card."""
+    """The weighted sum against its plain version at BBMM_SHAPES and
+    BBMM_BLOCK_SHAPES, word for word, with each call's launches; timed in
+    turns with its first design at BBMM_TIMED, and at the block shapes of
+    a path beside the parent's route (torch.cat, then the first design);
+    bb_weighted_sum_t refuses the (K, M) matrix of BBMM_TRANSPOSED_REFUSED
+    on the card."""
     from boundless_tpu_torch.core import bbmm as B
     from boundless_tpu_torch.kernels import bbmm as BK
 
+    first_design = bbmm_variants().rows_weighted_sum
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(SEED + 7)
     check = Checker()
     stats = None
+
+    def checked(what, m, k, w, kernel, plain):
+        before = BK.LAUNCHES
+        got = kernel()
+        want = BK.launches_of(m, k, sms)
+        if BK.LAUNCHES != before + want:
+            raise AssertionError(f"[bbmm] {what}: {BK.LAUNCHES - before} "
+                                 f"launches, expected {want}")
+        check(got, plain(), f"bb_weighted_sum {what} {m}x{k}x{w}")
+        return got
+
+    def reps_of(m, k):
+        return max(5, min(50, (1 << 26) // (m * k)))
+
     for what, path, m, k, w in BBMM_SHAPES:
         v, wt = bbmm_case(rng, m, k, w, what.startswith("max"), dev)
         kernel = lambda v=v, wt=wt: B.bb_weighted_sum(v, wt)  # noqa: E731
         plain = lambda v=v, wt=wt: B.bb_weighted_sum_plain(v, wt)  # noqa: E731
-        before = BK.LAUNCHES
-        got = kernel()
-        if BK.LAUNCHES != before + 1:
-            raise AssertionError(f"[bbmm] {what}: {BK.LAUNCHES - before} "
-                                 f"launches, expected 1")
-        check(got, plain(), f"bb_weighted_sum {what} {m}x{k}x{w}")
-        fields = {}
+        got = checked(what, m, k, w, kernel, plain)
+        fields = dict(slices=BK.plan(m, k, sms)[1])
         if what in BBMM_TIMED:
-            ms = cuda_ms(kernel, 10)
+            first = lambda v=v, wt=wt: first_design(v, wt)  # noqa: E731
+            check(first(), got, f"first design {what} {m}x{k}x{w}")
+            (k1, k2), (f1, f2) = in_turns(kernel, first, reps_of(m, k))
+            ms, first_ms = (k1 + k2) / 2, (f1 + f2) / 2
             plain_ms = cuda_ms(plain, 1)
             bms, by = bbmm_bound_ms(m, k, w, sm_clocks_per_s)
-            fields = dict(kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            fields.update(kernel_ms=f"{ms:.4f}", kernel_ms_turns=f"{k1:.4f},"
+                          f"{k2:.4f}", first_design_ms=f"{first_ms:.4f}",
+                          first_design_ms_turns=f"{f1:.4f},{f2:.4f}",
+                          no_slower=ms <= first_ms, plain_ms=f"{plain_ms:.4f}",
                           bound_ms=f"{bms:.4f}", bound_by=by,
-                          kernel_over_bound=f"{ms / bms:.2f}")
+                          kernel_over_bound=f"{ms / bms:.2f}",
+                          first_over_bound=f"{first_ms / bms:.2f}")
             if what in ("main DEEP z+zg", "lift alpha 4N"):
                 fields["int_mm_limbs_ms"] = f"{int_mm_limbs_ms(m, k, w, dev):.4f}"
             if stats is None:  # the main path's largest call
                 stats = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                              bound_by=by, shape=f"{m}x{k}x{w}",
-                             plain_shape=f"{m}x{k}x{w}")
+                             plain_shape=f"{m}x{k}x{w}",
+                             first_design_ms=first_ms)
         say("bbmm", shape=what, path=path or "-", m=m, k=k, w=w,
             tolerance=0, equal="yes", **fields)
         del v, wt, got
+    for what, path, m, layout, w in BBMM_BLOCK_SHAPES:
+        blocks = bbmm_blocks(rng, m, layout, dev)
+        k = sum(width for width, _ in layout)
+        wt = rand_words(rng, (k, w), dev)
+        kernel = lambda b=blocks, wt=wt: B.bb_weighted_sum_blocks(b, wt)  # noqa: E731
+        plain = lambda b=blocks, wt=wt: B.bb_weighted_sum_blocks_plain(b, wt)  # noqa: E731
+        got = checked(what, m, k, w, kernel, plain)
+        fields = dict(blocks=len(layout), slices=BK.plan(m, k, sms)[1])
+        if path is not None:
+            def joined(b=blocks, wt=wt):  # the parent's route
+                return first_design(torch.cat(
+                    [x.expand(m, x.shape[1]) for x in b], 1), wt)
+            check(joined(), got, f"joined first design {what}")
+            (k1, k2), (f1, f2) = in_turns(kernel, joined, reps_of(m, k))
+            bms, by = bbmm_bound_ms(m, k, w, sm_clocks_per_s)
+            fields.update(kernel_ms=f"{(k1 + k2) / 2:.4f}",
+                          kernel_ms_turns=f"{k1:.4f},{k2:.4f}",
+                          cat_then_first_design_ms=f"{(f1 + f2) / 2:.4f}",
+                          bound_ms=f"{bms:.4f}", bound_by=by,
+                          kernel_over_bound=f"{(k1 + k2) / 2 / bms:.2f}")
+        say("bbmm", shape=what, path=path or "-", m=m, k=k, w=w,
+            tolerance=0, equal="yes", **fields)
+        del blocks, wt, got
     k, m, w = BBMM_TRANSPOSED_REFUSED
     rows = torch.empty((k, m), dtype=torch.int32, device=dev)
     before = BK.LAUNCHES, B.PLAIN_ON_CUDA
@@ -1242,8 +1359,8 @@ def phase_kernel_bbmm(dev, sm_clocks_per_s):
 
 
 class RecordBbmm:
-    """Records (M, K, W) of every weighted-sum launch while active into
-    BBMM_SEEN[path]."""
+    """Records (M, K, W) and the column-block table of every weighted-sum
+    launch while active into BBMM_SEEN[path] and BBMM_TABLES_SEEN[path]."""
 
     def __init__(self, path: str):
         self.path = path
@@ -1252,24 +1369,29 @@ class RecordBbmm:
         from boundless_tpu_torch.kernels import bbmm as BK
 
         seen = BBMM_SEEN.setdefault(self.path, set())
-        self._bk, self._orig = BK, BK.weighted_sum
+        tables = BBMM_TABLES_SEEN.setdefault(self.path, set())
+        self._bk, self._orig = BK, BK.weighted_sum_blocks
 
-        def weighted_sum(values, weights):
-            seen.add((*values.shape, weights.shape[1]))
-            return self._orig(values, weights)
+        def weighted_sum_blocks(blocks, weights):
+            blocks = list(blocks)
+            m, table = BK.block_table(blocks)
+            w = weights.shape[1]
+            seen.add((m, sum(x for _, _, x in table), w))
+            tables.add((m, tuple((x, ld) for _, ld, x in table), w))
+            return self._orig(blocks, weights)
 
-        BK.weighted_sum = weighted_sum
+        BK.weighted_sum_blocks = weighted_sum_blocks
         return self
 
     def __exit__(self, *exc):
-        self._bk.weighted_sum = self._orig
+        self._bk.weighted_sum_blocks = self._orig
 
 
 def check_bbmm_paths(plain_checks: int):
-    """Every BBMM_SHAPES shape of a path was a call of that path, and the
-    plain version ran on the card only in the checks: `plain_checks` in
-    [bbmm], and PLAIN_IN_CONS_CHECKS in the constraint kernel's plain
-    version."""
+    """Every BBMM_SHAPES shape and BBMM_BLOCK_SHAPES table of a path was a
+    call of that path, and the plain version ran on the card only in the
+    checks: `plain_checks` in [bbmm], and PLAIN_IN_CONS_CHECKS in the
+    constraint kernel's plain version."""
     from boundless_tpu_torch.core import bbmm as B
 
     plain_checks += PLAIN_IN_CONS_CHECKS
@@ -1277,6 +1399,11 @@ def check_bbmm_paths(plain_checks: int):
         if path is not None and (m, k, w) not in BBMM_SEEN.get(path, ()):
             raise AssertionError(f"[bbmm] {what} {(m, k, w)} is not a call "
                                  f"of [{path}]: {sorted(BBMM_SEEN.get(path, ()))}")
+    for what, path, m, layout, w in BBMM_BLOCK_SHAPES:
+        seen = BBMM_TABLES_SEEN.get(path, ())
+        if path is not None and (m, layout, w) not in seen:
+            raise AssertionError(f"[bbmm] {what} {(m, layout, w)} is not a "
+                                 f"call of [{path}]: {sorted(seen)}")
     if B.PLAIN_ON_CUDA != plain_checks:
         raise AssertionError(f"[bbmm] the plain version ran "
                              f"{B.PLAIN_ON_CUDA - plain_checks} times on the "
@@ -1284,6 +1411,8 @@ def check_bbmm_paths(plain_checks: int):
     say("bbmm", path_shapes="all seen on their paths",
         shapes_seen=json.dumps({p: len(v) for p, v in BBMM_SEEN.items()}
                                ).replace(" ", ""),
+        tables_seen=json.dumps({p: len(v) for p, v in
+                                BBMM_TABLES_SEEN.items()}).replace(" ", ""),
         plain_on_cuda_in_cons_checks=PLAIN_IN_CONS_CHECKS,
         plain_on_cuda_outside_checks=B.PLAIN_ON_CUDA - plain_checks)
 
@@ -1339,16 +1468,19 @@ class PlainBbmm:
         from boundless_tpu_torch.kernels import bbmm as BK
 
         self._b, self._bk = B, BK
-        self._orig = B.bb_weighted_sum, B.bb_weighted_sum_t
+        self._orig = (B.bb_weighted_sum, B.bb_weighted_sum_t,
+                      B.bb_weighted_sum_blocks)
         self._start = B.PLAIN_ON_CUDA, BK.LAUNCHES
         B.bb_weighted_sum = B.bb_weighted_sum_plain
         B.bb_weighted_sum_t = B.bb_weighted_sum_t_plain
+        B.bb_weighted_sum_blocks = B.bb_weighted_sum_blocks_plain
         return self
 
     def __exit__(self, *exc):
         global PLAIN_IN_CONS_CHECKS
         B, BK = self._b, self._bk
-        B.bb_weighted_sum, B.bb_weighted_sum_t = self._orig
+        (B.bb_weighted_sum, B.bb_weighted_sum_t,
+         B.bb_weighted_sum_blocks) = self._orig
         PLAIN_IN_CONS_CHECKS += B.PLAIN_ON_CUDA - self._start[0]
         if exc[0] is None and BK.LAUNCHES != self._start[1]:
             raise AssertionError("the constraint kernel's plain version "

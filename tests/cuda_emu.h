@@ -7,6 +7,15 @@
 // become function statics and dynamic shared memory the array `smem`. It
 // says nothing of timing, memory ordering beyond the barriers, or what
 // nvcc accepts.
+//
+// It also gives exact emulations of csrc/ptx.cuh's wrappers of inline PTX
+// (and defines BT_CUDA_EMU, which leaves the PTX out): the int8 tensor-core
+// product and ldmatrix gather every lane's fragment or row address through
+// a warp exchange and apply the PTX ISA's layouts (m16n8k32 .u8 A, B and
+// C fragments; ldmatrix .x4 .b16 rows); a cp.async is queued in its
+// thread's open group, a commit closes the group, and cp_async_wait<N>
+// performs the thread's oldest groups until N are left, so a kernel that
+// reads a staged word before waiting for it reads the old word.
 #pragma once
 
 #include <stddef.h>
@@ -14,6 +23,7 @@
 #include <string.h>
 
 #include <barrier>
+#include <deque>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -26,7 +36,10 @@
 #define __constant__
 #define __shared__ static
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __grid_constant__
+#define __align__(n) __attribute__((aligned(n)))
+#define BT_CUDA_EMU 1
 
 struct uint4 {
   unsigned x, y, z, w;
@@ -34,7 +47,12 @@ struct uint4 {
 struct EmuDim {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local EmuDim threadIdx, blockIdx, blockDim;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+inline thread_local EmuDim threadIdx, blockIdx, blockDim, gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -47,6 +65,7 @@ enum {
 struct EmuWarp {
   std::barrier<> bar{32};
   unsigned vals[32];
+  alignas(16) unsigned char bytes[32][32];  // emu_gather's exchange
 };
 inline std::vector<std::unique_ptr<EmuWarp>> emu_warps;
 inline std::unique_ptr<std::barrier<>> emu_block;
@@ -68,7 +87,24 @@ inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
 inline unsigned __shfl_xor_sync(unsigned, unsigned v, int mask) {
   return emu_exchange(v, mask, true);
 }
+// Every lane's `mine`, in lane order, to every lane of the warp.
+template <class T>
+void emu_gather(const T& mine, T (&all)[32]) {
+  static_assert(sizeof(T) <= sizeof(EmuWarp::bytes[0]), "gather too wide");
+  EmuWarp& w = *emu_warps[threadIdx.x / 32];
+  memcpy(w.bytes[threadIdx.x % 32], &mine, sizeof(T));
+  w.bar.arrive_and_wait();
+  for (int i = 0; i < 32; ++i) memcpy(&all[i], w.bytes[i], sizeof(T));
+  w.bar.arrive_and_wait();
+}
 inline void __syncthreads() { emu_block->arrive_and_wait(); }
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long xy = (unsigned long long)y << 32 | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)(xy >> (8 * ((s >> (4 * n)) & 7)) & 0xff) << (8 * n);
+  return r;
+}
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
@@ -87,12 +123,84 @@ cudaError_t cudaFuncSetAttribute(F, int, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = 1;  // one block at a time
+  return cudaSuccess;
+}
+
+// csrc/ptx.cuh's wrappers (see above).
+struct EmuCopy {
+  uint32_t* dst;
+  const uint32_t* src;
+  bool full;
+};
+inline thread_local std::vector<EmuCopy> emu_open_group;
+inline thread_local std::deque<std::vector<EmuCopy>> emu_groups;
+
+namespace ptx {
+
+inline void mma_u8(int (&d)[4], const uint32_t (&a)[4],
+                   const uint32_t (&b)[2]) {
+  struct Frag {
+    uint32_t a[4], b[2];
+  };
+  Frag all[32];
+  emu_gather(Frag{{a[0], a[1], a[2], a[3]}, {b[0], b[1]}}, all);
+  uint8_t A[16][32], B[32][8];
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane / 4, q = lane % 4;
+    for (int i = 0; i < 4; ++i) {
+      A[g][4 * q + i] = (uint8_t)(all[lane].a[0] >> (8 * i));
+      A[g + 8][4 * q + i] = (uint8_t)(all[lane].a[1] >> (8 * i));
+      A[g][16 + 4 * q + i] = (uint8_t)(all[lane].a[2] >> (8 * i));
+      A[g + 8][16 + 4 * q + i] = (uint8_t)(all[lane].a[3] >> (8 * i));
+      B[4 * q + i][g] = (uint8_t)(all[lane].b[0] >> (8 * i));
+      B[16 + 4 * q + i][g] = (uint8_t)(all[lane].b[1] >> (8 * i));
+    }
+  }
+  const int g = threadIdx.x % 32 / 4, q = threadIdx.x % 4;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i / 2), col = 2 * q + i % 2;
+    uint32_t sum = (uint32_t)d[i];  // s32 sums wrap as the card's do
+    for (int k = 0; k < 32; ++k) sum += (uint32_t)A[row][k] * B[k][col];
+    d[i] = (int)sum;
+  }
+}
+
+inline void ldmatrix_x4(uint32_t (&r)[4], const uint32_t* row) {
+  const uint32_t* rows[32];
+  emu_gather(row, rows);
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) r[i] = rows[8 * i + lane / 4][lane % 4];
+}
+
+inline void cp_async4(uint32_t* dst, const uint32_t* src, bool full) {
+  emu_open_group.push_back(EmuCopy{dst, src, full});
+}
+
+inline void cp_async_commit() {
+  emu_groups.push_back(std::move(emu_open_group));
+  emu_open_group.clear();
+}
+
+template <int N>
+void cp_async_wait() {
+  while (emu_groups.size() > (size_t)N) {
+    for (const EmuCopy& c : emu_groups.front())
+      *c.dst = c.full ? *c.src : 0u;
+    emu_groups.pop_front();
+  }
+}
+
+}  // namespace ptx
 
 // kernel<<<grid, block, shared, stream>>>(args...) becomes
 // emu_launch(grid, block, shared, kernel, args...).
 template <class F, class... A>
-void emu_launch(unsigned grid, unsigned block, size_t, F kernel, A... args) {
-  for (unsigned b = 0; b < grid; ++b) {
+void emu_launch(dim3 grid, unsigned block, size_t, F kernel, A... args) {
+  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
     emu_warps.clear();
     for (unsigned w = 0; w < block / 32; ++w)
       emu_warps.emplace_back(new EmuWarp());
@@ -101,8 +209,11 @@ void emu_launch(unsigned grid, unsigned block, size_t, F kernel, A... args) {
     for (unsigned t = 0; t < block; ++t)
       threads.emplace_back([=] {
         threadIdx.x = t;
-        blockIdx.x = b;
+        blockIdx.x = b % grid.x;
+        blockIdx.y = b / grid.x;
         blockDim.x = block;
+        gridDim.x = grid.x;
+        gridDim.y = grid.y;
         kernel(args...);
         emu_block->arrive_and_drop();  // a returned thread waits on nothing
         emu_warps[t / 32]->bar.arrive_and_drop();

@@ -15,9 +15,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "boundless_tpu_torch", "csrc")
 
 
-def build(source: str, out_dir) -> ctypes.CDLL:
-    with open(os.path.join(CSRC, source)) as f:
-        src = f.read()
+def build(source: str, out_dir, text: str = None) -> ctypes.CDLL:
+    """`text`, when given, is the source's text in place of the file's
+    (a probe written by a test; its includes still resolve in csrc/)."""
+    if text is None:
+        with open(os.path.join(CSRC, source)) as f:
+            text = f.read()
+    src = text
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
     src, launches = re.subn(
         r"([\w<>]+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(",

@@ -1,8 +1,11 @@
 """The CUDA NTT, constraint and weighted-sum kernels against their plain
 versions, on the card (every NTT option; the fused constraint kernel's
 α-combined columns; the weighted sum with row strides, edge shapes and
-both widths it takes, W = 4 and 8, and its refusals: any other width, and
-the transposed view that `bb_weighted_sum_t` passes).
+both widths it takes, W = 4 and 8, K split over blocks, column-block
+tables and the α-combine through them, and its refusals: any other width,
+and the transposed view that `bb_weighted_sum_t` passes; the int8
+tensor-core product and ldmatrix wrappers of `csrc/ptx.cuh` against a
+numpy u8 product).
 
 Marked `cuda`: the kernels have no CPU mode, so these skip on a host
 without an NVIDIA GPU. They import no JAX; run them on a GPU host (which
@@ -10,6 +13,10 @@ need not have JAX, hence `--noconftest`) with
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -p no:xdist -o addopts=""
 """
+
+import ctypes
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -20,10 +27,15 @@ from boundless_tpu_torch.core import field as F
 from boundless_tpu_torch.core import ntt as NTT
 from boundless_tpu_torch.kernels import bbmm as BK
 from boundless_tpu_torch.kernels import cons as CK
+from boundless_tpu_torch.kernels import build
 from boundless_tpu_torch.kernels import ntt as NK
+from boundless_tpu_torch.prover import stark
 from boundless_tpu_torch.zkvm import guests, prove
 from boundless_tpu_torch.zkvm import witness as W
 from boundless_tpu_torch.zkvm.executor import Executor
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from mma_probe import MMA_PROBE, mma_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -118,7 +130,8 @@ def test_weighted_sum_equals_plain(dev, m, k, w, pad):
     before = BK.LAUNCHES
     got = B.bb_weighted_sum(host[:, pad:], wt)  # row stride K + pad
     want = B.bb_weighted_sum_plain(host[:, pad:], wt)
-    assert BK.LAUNCHES == before + 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert BK.LAUNCHES == before + BK.launches_of(m, k, sms)  # 2: K split
     assert torch.equal(got, want)
 
 
@@ -181,3 +194,49 @@ def test_constraint_kernel_equals_plain(dev, variant):
     with pytest.raises(ValueError):
         CK.evaluate(air, *evals, globals_, pub)  # rows: CPU only
     assert CK.blocks_per_sm(air) >= 1
+
+
+def test_mma_probe_equals_numpy_u8_product(dev):
+    """The u8 product and ldmatrix as the hardware lays out their
+    fragments (`csrc/ptx.cuh`, through tests/mma_probe.py) against numpy."""
+    lib = build.load_source("bt_mma_probe", lambda: MMA_PROBE)
+    lib.bt_mma_probe.argtypes = [ctypes.c_void_p] * 6
+    for seed in range(3):
+        a, b, c, want = mma_case(seed)
+        ta, tb, tc = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                      for x in (a, b.T, c))
+        d, e = (torch.zeros((16, 8), dtype=torch.int32, device=dev)
+                for _ in range(2))
+        assert lib.bt_mma_probe(ta.data_ptr(), tb.data_ptr(), tc.data_ptr(),
+                                d.data_ptr(), e.data_ptr(), None) == 0
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(d.cpu().numpy(), want)
+        np.testing.assert_array_equal(e.cpu().numpy(), want)
+
+
+def test_weighted_sum_blocks_and_split_equal_plain(dev):
+    """A column-block table (a VecVal read from inside a wider matrix, a
+    base column of it, a VecVal, a broadcast constant, an ext item) through
+    the α-combine in one launch, and calls that split K (two launches),
+    against the plain version."""
+    m = 5000
+    big = words((m, 12), 1, dev)
+    cons = [stark.VecVal(big[:, 2:7]), big[:, 9],
+            stark.ExtVal(words((m, 4), 2, dev)),
+            stark.VecVal(words((m, 3), 3, dev)), words((1,), 4, dev)]
+    sizes = [5, 1, 1, 3, 1]
+    apows = NTT.ext_powers(words((4,), 5, dev), sum(sizes))
+    before = BK.LAUNCHES
+    got = stark._combine_pointwise(cons, sizes, apows)
+    assert BK.LAUNCHES == before + 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stark.bbmm, "bb_weighted_sum_blocks",
+                   B.bb_weighted_sum_blocks_plain)
+        assert torch.equal(got, stark._combine_pointwise(cons, sizes, apows))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, k, w in ((100, 480, 4), (192, 480, 8), (1 << 12, 8112, 4)):
+        v, wt = words((m, k), m, dev), words((k, w), k, dev)
+        before = BK.LAUNCHES
+        got = B.bb_weighted_sum(v, wt)
+        assert BK.LAUNCHES == before + BK.launches_of(m, k, sms) == before + 2
+        assert torch.equal(got, B.bb_weighted_sum_plain(v, wt)), (m, k, w)

@@ -2,7 +2,7 @@
 one CUDA card.
 
     python3 tools/profile_torch.py [--path main|recursion] [--po2 17]
-                                   [--reps 3]
+                                   [--reps 3] [--root DIR]
 
 `--path main` (the default): the loop guest at `--po2` (as
 `chip_smoke.py` and the reference's `bench.py`), rv32i, `DEFAULT_PS` (100
@@ -14,8 +14,15 @@ two po2-`--po2` `DEFAULT_PS` segment proofs: the session, both segment
 proofs, the pre-chains and the `SuccinctSystem` are set-up and are not
 timed. Its stage table splits the eager quotient (`_quotient_coeffs` ->
 `eval_grid`) into `air.constraints` (RecursionAir's constraint evaluation)
-and `combine_constraints` (the α-combine), beside the DEEP combination,
-`bb_weighted_sum`, the native evaluation and the rest of the prover.
+and `combine_constraints` (the α-combine), and the α-combine into
+`ext_powers`, the concatenations (`torch.cat` inside `_combine_pointwise`)
+and the ext items (`F.ext_mul` and `F.ext_add` inside it: the terms, or
+the weight rows α^k X^i), beside the DEEP combination, `bb_weighted_sum`,
+the native evaluation and the rest of the prover.
+
+`--root DIR` runs the port of another checkout (its
+`boundless_tpu_torch/`, built into its own `build/`), so that a parent
+and a change are profiled in one call; the stages it lacks are left out.
 
 For either path:
 
@@ -46,7 +53,16 @@ import time
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+def _root() -> str:
+    """--root, read before the port is imported."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.abspath(pre.parse_known_args()[0].root)
+
+
+sys.path.insert(0, _root())
 
 from boundless_tpu_torch.air import cons_eval, rv32im  # noqa: E402
 from boundless_tpu_torch.core import bbmm, fri, merkle  # noqa: E402
@@ -73,10 +89,18 @@ COMMON_STAGES = (
     (NTT, "eval_poly_ext", "DEEP taps (eval_poly_ext)"),
     (stark, "_deep_combo_evals", "DEEP combination"),
     (fri, "prove", "fri.prove"),
-    (bbmm, "bb_weighted_sum", "bb_weighted_sum (all)"),
-    (BK, "weighted_sum", "weighted-sum kernel calls"),
+    (bbmm, "bb_weighted_sum", "bb_weighted_sum (all, one matrix)"),
+    (bbmm, "bb_weighted_sum_blocks", "bb_weighted_sum_blocks (all)"),
+    (BK, "weighted_sum", "weighted-sum kernel calls (one matrix)"),
+    (BK, "weighted_sum_blocks", "weighted-sum kernel calls (all)"),
     (F, "ext_inv", "ext_inv (all)"),
     (stark, "combine_constraints", "alpha-combine (combine_constraints)"),
+    (stark, "_combine_pointwise", "alpha-combine pointwise"),
+    # (owner, attribute, label, enclosing stage): timed only inside it
+    (NTT, "ext_powers", "  ext_powers", "alpha-combine (combine_constraints)"),
+    (torch, "cat", "  concatenation (torch.cat)", "alpha-combine pointwise"),
+    (F, "ext_mul", "  ext items (ext_mul)", "alpha-combine pointwise"),
+    (F, "ext_add", "  ext items (ext_add)", "alpha-combine pointwise"),
 )
 STAGES = {
     "main": COMMON_STAGES + (
@@ -101,7 +125,7 @@ STAGES = {
 KERNELS = (("sponge", P2K, ("sponge_kernel", "tree_kernel")),
            ("ntt", NK, ("sub_ntt_kernel",)),
            ("cons", CK, ("cons_fused",)),
-           ("bbmm", BK, ("ws_rows",)))
+           ("bbmm", BK, ("ws_rows", "ws_mma", "ws_sum")))
 
 
 def main_path(po2: int, dev):
@@ -147,19 +171,28 @@ def timed(run):
 
 
 def stage_table(run, stages):
-    """Inclusive synchronised seconds and call counts per stage."""
+    """Inclusive synchronised seconds and call counts per stage; a stage
+    with an enclosing stage counts only the calls made inside it (others
+    pass straight through, unsynchronised)."""
     stats = collections.defaultdict(lambda: [0.0, 0])
+    depth = collections.Counter()  # label -> calls of it in progress
     originals = []
 
-    def wrap(owner, name, label):
+    def wrap(owner, name, label, inside=None):
         fn = getattr(owner, name)
         originals.append((owner, name, fn))
 
         @functools.wraps(fn)
         def timed_call(*args, **kwargs):
+            if inside is not None and not depth[inside]:
+                return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
+            depth[label] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[label] -= 1
             torch.cuda.synchronize()
             stats[label][0] += time.perf_counter() - t0
             stats[label][1] += 1
@@ -168,7 +201,8 @@ def stage_table(run, stages):
         setattr(owner, name, timed_call)
 
     for stage in stages:
-        wrap(*stage)
+        if hasattr(stage[0], stage[1]):
+            wrap(*stage)
     try:
         _, wall = timed(run)
     finally:
@@ -182,6 +216,7 @@ def main():
     ap.add_argument("--path", choices=sorted(STAGES), default="main")
     ap.add_argument("--po2", type=int, default=17)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--root", help="checkout whose port to run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
@@ -189,6 +224,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
+    print(f"port: {os.path.dirname(stark.__file__)}", flush=True)
     dev = torch.device("cuda", 0)
     make = main_path if args.path == "main" else recursion_path
     run = make(args.po2, dev)
