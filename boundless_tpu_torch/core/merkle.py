@@ -6,6 +6,11 @@ Every hash goes through `kernels/poseidon2.py` (the CUDA sponge on a GPU
 tensor), at every size: no small-level fallback as on the TPU. On the card
 the levels above one of at most `TREE_TOP` nodes are one launch
 (`hash_tree`); on the CPU every level runs the plain loop.
+
+A matrix may also come as its column blocks, each on its own device (a
+column-sharded proof, `parallel/mesh.py`): block k's sponge starts from
+block k-1's (N, 24) state, so the leaves equal those of the whole rows,
+and the levels above run on the first block's device.
 """
 
 from __future__ import annotations
@@ -14,26 +19,48 @@ from typing import NamedTuple
 
 import torch
 
+from . import poseidon2 as P2
 from ..kernels import poseidon2 as P2K
+from ..parallel import mesh
 
 
 class MerkleTree(NamedTuple):
     """levels[0] = leaf digests (N, 8) ... levels[-1] = root (1, 8)."""
 
     levels: tuple
-    matrix: torch.Tensor  # committed rows (N, C), Montgomery int32
+    # the committed rows (N, C), Montgomery int32, as contiguous column
+    # blocks in column order: one block unless the commit was sharded
+    blocks: tuple
 
     @property
     def root(self):
         return self.levels[-1][0]
 
+    @property
+    def num_leaves(self):
+        return self.levels[0].shape[0]
+
 
 def commit(matrix) -> MerkleTree:
-    """Commit to a (N, C) matrix, N a power of two."""
-    n = matrix.shape[0]
+    """Commit to an (N, C) matrix, N a power of two: one tensor, or a
+    tuple of its column blocks in column order, every block but the last
+    a multiple of the sponge's rate wide, each on its own device."""
+    blocks = ((matrix,) if isinstance(matrix, torch.Tensor)
+              else tuple(matrix))
+    n = blocks[0].shape[0]
     assert n & (n - 1) == 0, "leaf count must be a power of two"
-    matrix = matrix.contiguous()
-    cur = P2K.hash_rows(matrix)
+    blocks = tuple(b.contiguous() for b in blocks)
+    if any(b.shape[1] % P2.RATE for b in blocks[:-1]):
+        raise ValueError(f"a chained leaf hash needs blocks of multiples of "
+                         f"{P2.RATE} columns: {[b.shape[1] for b in blocks]}")
+    state = None
+    for b in blocks[:-1]:
+        state = P2K.hash_rows(b, None if state is None else
+                              mesh.move(state, b.device), P2.WIDTH)
+    cur = P2K.hash_rows(blocks[-1], None if state is None else
+                        mesh.move(state, blocks[-1].device))
+    if len(blocks) > 1:
+        cur = mesh.move(cur, blocks[0].device)
     levels = [cur]
     while cur.shape[0] > P2K.TREE_TOP:
         # rows 2i and 2i+1 are adjacent: the (n/2, 16) view is [left|right]
@@ -41,16 +68,22 @@ def commit(matrix) -> MerkleTree:
         levels.append(cur)
     if cur.shape[0] > 1:
         levels.extend(P2K.hash_tree(cur))  # the rest: one launch on the card
-    return MerkleTree(levels=tuple(levels), matrix=matrix)
+    return MerkleTree(levels=tuple(levels), blocks=blocks)
 
 
 def open_rows(tree: MerkleTree, indices):
-    """Open query rows. indices: (Q,) int64 tensor.
+    """Open query rows. indices: (Q,) int64 tensor on the tree's leader
+    (its first block's device).
 
     Returns (rows (Q, C), paths (Q, depth, 8)); paths[q][d] is the sibling
-    digest at depth d (leaf level first).
+    digest at depth d (leaf level first). A sharded tree's rows are
+    gathered from its blocks and joined in column order on the leader.
     """
-    rows = tree.matrix[indices]
+    leader = tree.blocks[0].device
+    rows = [tree.blocks[0][indices]] + [
+        mesh.move(b[mesh.move(indices, b.device)], leader)
+        for b in tree.blocks[1:]]
+    rows = rows[0] if len(rows) == 1 else torch.cat(rows, 1)
     sibs = []
     idx = indices
     for level in tree.levels[:-1]:

@@ -49,6 +49,9 @@ class Poseidon254Suite:
     name = "poseidon254"
 
     def commit(self, matrix) -> M.MerkleTree:
+        if not isinstance(matrix, torch.Tensor):
+            raise ValueError("the p254 suite commits a whole matrix on one "
+                             "device, not column blocks")
         n = matrix.shape[0]
         assert n & (n - 1) == 0, "leaf count must be a power of two"
         matrix = matrix.contiguous()
@@ -60,7 +63,7 @@ class Poseidon254Suite:
             levels.append(cur)
         if cur.shape[0] > 1:  # the rest in one launch on the card
             levels.extend(P254K.hash_tree(cur))
-        return M.MerkleTree(levels=tuple(levels), matrix=matrix)
+        return M.MerkleTree(levels=tuple(levels), blocks=(matrix,))
 
     def verify_rows(self, root, indices, rows, paths):
         leaves = P254K.hash_rows(rows.contiguous())

@@ -137,11 +137,19 @@ def _sponge(matrix, init, out_words: int, lanes=None):
     return out
 
 
-def hash_rows(matrix):
-    """Sponge-hash each row of (N, C) Montgomery int32 -> (N, 8)."""
+def hash_rows(matrix, init=None, out_words: int = P2.DIGEST_WORDS):
+    """Sponge-hash each row of (N, C) Montgomery int32 -> (N, out_words),
+    from the zero state or from `init` (N, 24), as the plain version
+    (`core/poseidon2.hash_rows`): out_words = 24 returns the whole state,
+    which a hash of the row's next columns takes as its `init` (a leaf
+    hash chained over column blocks, `merkle.commit`)."""
+    if not 1 <= out_words <= P2.WIDTH:
+        raise ValueError(f"out_words must be in [1, {P2.WIDTH}], "
+                         f"got {out_words}")
     if matrix.device.type == "cpu":
-        return P2.hash_rows(matrix)
-    return _sponge(matrix, None, P2.DIGEST_WORDS)
+        return P2.hash_rows(matrix, init, out_words)
+    return _sponge(matrix, None if init is None else init.contiguous(),
+                   out_words)
 
 
 def hash_pairs(left, right):

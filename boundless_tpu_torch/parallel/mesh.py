@@ -1,4 +1,4 @@
-"""Device mesh and data-parallel segment proving.
+"""Device mesh, data-parallel segment proving and column sharding.
 
 The port's counterpart of `boundless_tpu/parallel/mesh.py`. The reference
 design has two axes:
@@ -8,15 +8,30 @@ design has two axes:
        hot store), so dp inside a host composes with worker fan-out.
   tp — trace columns inside one proof: the LDE/NTT/Merkle work of
        different columns is independent until the DEEP combination. The
-       JAX package leaves this split to XLA's GSPMD partitioner; the port
-       has no counterpart yet (ROADMAP.md, Queue 1), so
-       `shard_batched_prover` refuses a mesh with tp > 1.
+       JAX package leaves this split to XLA's GSPMD partitioner
+       (`P("dp", None, "tp")` for the data, `P(None, "tp")` for ctrl);
+       the port splits by hand.
 
-The port's data-parallel prover runs segment i on dp group i % dp, one
-host thread per group, each proving its segments one after the other with
-`stark.prove` on its group's device. A segment's proof is the one
-`stark.prove` gives for it alone: the prover is deterministic given the
-trace (the blinding sits in the witness).
+`shard_batched_prover` runs segment i on dp group i % dp, one host thread
+per group, each proving its segments one after the other with
+`stark.prove`. Within a group `mesh.devices[g, :]` the ctrl and data
+traces go in as `ShardedTrace`s: their columns cut by `column_split` into
+contiguous blocks, one on each of the group's devices (a group may name
+one device twice). Each shard interpolates, extends and commits its own
+columns (the leaf hash chained through the shards in column order, a
+(N, 24) sponge state crossing each boundary), evaluates its own DEEP taps
+and its part of the DEEP combination's weighted sums; the group's first
+device, the leader, gathers the 4N evaluations and runs the transcript,
+the accumulator, the quotient, the check commit, FRI and the openings
+(`prover/stark.py`). A segment's proof is word for word the one
+`stark.prove` gives for its whole trace on one device: the prover is
+deterministic given the trace (the blinding sits in the witness), every
+split falls on a sponge block boundary, and the weighted sums are exact.
+
+`MOVED_BYTES` counts the bytes a proof moves between the positions of its
+group (to and from the leader, and the sponge state from shard to shard),
+whether or not the two positions name the same card; placing the traces
+(`shard_fn`) is not counted.
 """
 
 from __future__ import annotations
@@ -27,6 +42,11 @@ import threading
 
 import numpy as np
 import torch
+
+from ..core.poseidon2 import RATE  # every shard but the last is a multiple
+
+MOVED_BYTES = 0
+_MOVED_LOCK = threading.Lock()  # dp groups prove from threads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +85,73 @@ def make_mesh(n_devices=None, dp=None, devices=None) -> Mesh:
     return Mesh(grid)
 
 
+def column_split(c: int, tp: int) -> list:
+    """[(start, stop), ...]: C columns cut into at most tp contiguous
+    blocks in column order, all of one width that is a multiple of RATE
+    but the last (narrower), the width as small as that allows; no block
+    is empty (C = 392, tp = 2: 208 | 184; C = 40, tp = 3: 16 | 16 | 8)."""
+    if tp < 1:
+        raise ValueError(f"tp must be at least 1, got {tp}")
+    width = RATE * -(-c // (RATE * tp))
+    return [(a, min(a + width, c)) for a in range(0, c, width)]
+
+
+def check_group(devices) -> None:
+    """Raise ValueError unless the devices are all of one type: a group
+    that mixed the CPU with a card would prove part of a segment on the
+    CPU."""
+    kinds = {torch.device(d).type for d in devices}
+    if len(kinds) > 1:
+        raise ValueError(f"a tp group mixes device types {sorted(kinds)}: "
+                         f"{[str(d) for d in devices]}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedTrace:
+    """A trace group's (N, C) columns as contiguous blocks in column order,
+    block k on the group's device k; blocks[0]'s device is the leader."""
+
+    blocks: tuple
+
+    def __post_init__(self):
+        check_group(b.device for b in self.blocks)
+        if not self.blocks or len({b.shape[0] for b in self.blocks}) != 1:
+            raise ValueError("a sharded trace needs blocks of equal rows")
+        if any(b.shape[1] % RATE for b in self.blocks[:-1]):
+            raise ValueError(f"every block but the last must be a multiple "
+                             f"of {RATE} columns: "
+                             f"{[b.shape[1] for b in self.blocks]}")
+
+    @classmethod
+    def of(cls, trace, devices) -> "ShardedTrace":
+        """Cut `trace` by `column_split` over `devices` (empty blocks
+        dropped: their devices get no shard)."""
+        devices = [torch.device(d) for d in devices]
+        return cls(tuple(trace[:, a:b].to(devices[k]).contiguous()
+                         for k, (a, b) in enumerate(
+                             column_split(trace.shape[1], len(devices)))))
+
+    @property
+    def leader(self) -> torch.device:
+        return self.blocks[0].device
+
+    def gather(self):
+        """The whole (N, C) trace on the leader."""
+        if len(self.blocks) == 1:
+            return self.blocks[0]
+        return torch.cat([self.blocks[0]] + [move(b, self.leader)
+                                             for b in self.blocks[1:]], 1)
+
+
+def move(x, device):
+    """x on `device`, counted in MOVED_BYTES: a copy between two positions
+    of a tp group (no copy when both name one device)."""
+    global MOVED_BYTES
+    with _MOVED_LOCK:
+        MOVED_BYTES += x.numel() * x.element_size()
+    return x.to(device, non_blocking=True)
+
+
 def _unbatch(pub_b, count: int) -> list:
     """Per-segment publics from a list, a tensor with a leading batch axis
     or a dataclass of such tensors."""
@@ -85,38 +172,47 @@ def _to(pub, device):
     return pub.to(device)
 
 
+def _shard(trace, group):
+    """`trace` as a ShardedTrace over `group` (left as it is once it is
+    one)."""
+    return trace if isinstance(trace, ShardedTrace) else \
+        ShardedTrace.of(trace, group)
+
+
 def shard_batched_prover(air, po2, ps, mesh: Mesh):
     """Returns (fn, shard_fn): fn(data_b, pub_b, ctrl) proves a batch of
     segments under the mesh and returns their SegmentProofs in order;
-    shard_fn places segment i's (data, publics) on dp group i % dp ahead
-    of time (fn moves whatever is not placed yet, and the shared ctrl to
+    shard_fn places segment i's data as a ShardedTrace over dp group
+    i % dp and its publics on that group's leader ahead of time (fn
+    places whatever is not placed yet, and shards the shared ctrl over
     each group). data_b: (B, N, C) tensor or B (N, C) tensors; pub_b: B
     publics, or one batched along a leading axis; ctrl: the control trace
-    every segment shares (or None)."""
+    every segment shares (None: the AIR's own, built on each leader)."""
     from ..prover import stark
 
-    dp, tp = mesh.devices.shape
-    if tp > 1:
-        raise NotImplementedError(
-            f"column sharding (tp = {tp}) is not ported: the port proves "
-            f"each segment on one device (ROADMAP.md, Queue 1); build the "
-            f"mesh with tp = 1")
-    groups = [mesh.devices[g, 0] for g in range(dp)]
+    dp, _ = mesh.devices.shape
+    groups = [list(mesh.devices[g]) for g in range(dp)]
+    for group in groups:
+        check_group(group)
 
     def shard_fn(data_b, pub_b, ctrl):
         count = len(data_b)
         pubs = _unbatch(pub_b, count)
-        return ([data_b[i].to(groups[i % dp]) for i in range(count)],
-                [_to(pubs[i], groups[i % dp]) for i in range(count)], ctrl)
+        return ([_shard(data_b[i], groups[i % dp]) for i in range(count)],
+                [_to(pubs[i], groups[i % dp][0]) for i in range(count)], ctrl)
 
     def fn(data_b, pub_b, ctrl):
         data, pubs, _ = shard_fn(data_b, pub_b, ctrl)  # no-op once placed
-        ctrls = [None if ctrl is None else ctrl.to(d) for d in groups]
+        if ctrl is None and air.ctrl_cols and not getattr(
+                air, "ctrl_dynamic", False):
+            ctrl = air.ctrl_trace(1 << po2, groups[0][0])
+        ctrls = [None if ctrl is None else _shard(ctrl, group)
+                 for group in groups]
         proofs = [None] * len(data)
         errors = []
 
         def run(g):
-            dev = groups[g]
+            dev = groups[g][0]
             on = (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext())
             try:

@@ -39,6 +39,7 @@ from ..core import fri, merkle
 from ..core import ntt as NTT
 from ..core.ntt import _powers as _np_powers
 from ..air.dsl import Air, BaseAlg, ExtAlg, Columns
+from ..parallel import mesh
 
 INV_RATE = 4
 EXT = 4
@@ -96,16 +97,47 @@ def _tensor(a: np.ndarray, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _lde_commit(trace, commit_expand: int, suite):
-    """trace (N, C) on H_N -> (coeffs (N, C), eval4 (4N, C), commit tree).
+def _blocks(trace) -> tuple:
+    """A trace group's column blocks: a ShardedTrace's, or the one tensor."""
+    return trace.blocks if isinstance(trace, mesh.ShardedTrace) else (trace,)
 
-    The tree commits the stride-(4/c) subset of the 4N grid, which is the
-    commit domain g*H_{cN}."""
-    coeffs = NTT.interpolate(trace)
-    evals = NTT.coset_evaluate(coeffs, expand=INV_RATE)
+
+def _whole(trace):
+    """A trace group's whole (N, C) matrix on its leader."""
+    return trace.gather() if isinstance(trace, mesh.ShardedTrace) else trace
+
+
+def _lde_commit(trace, commit_expand: int, suite):
+    """trace (N, C) on H_N, or a ShardedTrace -> (coeffs, eval4 (4N, C),
+    commit tree).
+
+    coeffs: each block's (N, c_k) coefficients, a tuple in column order on
+    the blocks' devices. Each block is interpolated and extended on its
+    own device; a sharded group's 4N evaluations are gathered on the
+    leader, each shard's freed once copied. The tree commits the
+    stride-(4/c) subset of the 4N grid, which is the commit domain
+    g*H_{cN}, each block's columns on its own device."""
+    blocks = _blocks(trace)
+    leader = blocks[0].device
     step = INV_RATE // commit_expand
-    cevals = evals if step == 1 else evals[::step]
-    return coeffs, evals, suite.commit(cevals)
+    coeffs, committed, evals, off = [], [], None, 0
+    for k, block in enumerate(blocks):
+        coeffs.append(NTT.interpolate(block))
+        ev = NTT.coset_evaluate(coeffs[-1], expand=INV_RATE)
+        committed.append(ev if step == 1 else ev[::step].contiguous())
+        if len(blocks) == 1:
+            evals = ev
+            continue
+        if evals is None:
+            evals = torch.empty((ev.shape[0], sum(b.shape[1] for b in blocks)),
+                                dtype=F.I32, device=leader)
+        width = ev.shape[1]
+        evals[:, off:off + width] = ev if k == 0 else mesh.move(ev, leader)
+        off += width
+        del ev
+    tree = suite.commit(committed[0] if len(committed) == 1
+                        else tuple(committed))
+    return tuple(coeffs), evals, tree
 
 
 class ExtVal:
@@ -454,10 +486,23 @@ def prove(air: Air, data_trace, pub, po2: int,
     """Prove one segment on the device of `data_trace`.
 
     `pub`: public-values dataclass of Montgomery tensors, bound into the
-    transcript first. `ctrl_trace`: required iff `air.ctrl_dynamic`."""
+    transcript first. `ctrl_trace`: required iff `air.ctrl_dynamic`.
+
+    `data_trace` and `ctrl_trace` may each be a `mesh.ShardedTrace`, its
+    columns spread over a tp group's devices (`parallel/mesh.py`): each
+    shard's LDE, leaf hash (chained in column order), DEEP taps and part
+    of the DEEP weighted sums run on the shard's device, and the rest on
+    the leader, the data's first device, which holds `pub`. The proof is
+    word for word the one of the whole traces on one device."""
     n = 1 << po2
-    assert tuple(data_trace.shape) == (n, air.data_cols)
-    dev = data_trace.device
+    data_blocks = _blocks(data_trace)
+    shape = (data_blocks[0].shape[0], sum(b.shape[1] for b in data_blocks))
+    assert shape == (n, air.data_cols)
+    dev = data_blocks[0].device
+    if isinstance(ctrl_trace, mesh.ShardedTrace) and \
+            ctrl_trace.leader != dev:
+        raise ValueError(f"ctrl's leader {ctrl_trace.leader} is not the "
+                         f"data's {dev}")
 
     suite = ps.suite()
     tr = suite.transcript(dev)
@@ -483,7 +528,9 @@ def prove(air: Air, data_trace, pub, po2: int,
                 if air.globals_count else torch.zeros((0, EXT), dtype=F.I32,
                                                       device=dev))
     if has_accum:
-        accum_trace = air.accum_trace(ctrl_trace, data_trace, globals_)
+        accum_trace = air.accum_trace(
+            None if ctrl_trace is None else _whole(ctrl_trace),
+            _whole(data_trace), globals_)
         accum_coeffs, accum_evals, accum_tree = _lde_commit(
             accum_trace, ps.commit_expand, suite)
         tr.mix_digest(accum_tree.root)
@@ -508,8 +555,15 @@ def prove(air: Air, data_trace, pub, po2: int,
     z_, zg, z4 = _deep_points(z, n)
 
     def taps_of(coeffs):
-        return torch.stack([NTT.eval_poly_ext(coeffs, z_),
-                            NTT.eval_poly_ext(coeffs, zg)], dim=1)
+        """(C, 2, 4) taps at z and z*g_N of each block's columns on its
+        own device, joined in column order on the leader."""
+        parts = []
+        for k, c in enumerate(coeffs):
+            at = (z_, zg) if k == 0 else (mesh.move(z_, c.device),
+                                          mesh.move(zg, c.device))
+            t = torch.stack([NTT.eval_poly_ext(c, x) for x in at], dim=1)
+            parts.append(t if k == 0 else mesh.move(t, dev))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
     taps_ctrl = taps_of(ctrl_coeffs) if has_ctrl else None
     taps_data = taps_of(data_coeffs)
@@ -527,7 +581,7 @@ def prove(air: Air, data_trace, pub, po2: int,
                                   (accum_tree if has_accum else None,
                                    has_accum)) if present]
     trace_taps = torch.cat(all_taps, dim=0)
-    combo = _deep_combo_evals([t.matrix for t in trees], trace_taps,
+    combo = _deep_combo_evals([t.blocks for t in trees], trace_taps,
                               check_evals,
                               taps_check, beta, z_, zg, z4, n,
                               ps.commit_expand)
@@ -561,10 +615,11 @@ def _deep_combo_evals(trace_blocks, trace_taps, check_evals, taps_check,
                       beta, z, zg, z4, n: int, commit_expand: int):
     """combo(x) = Σ_p (Σ_{j∈p} β^j P_j(x) - Σ_{j∈p} β^j v_j) / (x - p),
     all on the commit domain g*H_{commit_expand*N}. `trace_blocks`: the
-    trees' evaluation matrices (ctrl, data, accum), read in place."""
+    trees' evaluation matrices (ctrl, data, accum) as each tree's column
+    blocks, read in place."""
     dev = check_evals.device
     big = commit_expand * n
-    ct = sum(b.shape[1] for b in trace_blocks)
+    ct = sum(b.shape[1] for tree in trace_blocks for b in tree)
     betas = NTT.ext_powers(beta, 2 * ct + CHECK_COLS)
     w_z, w_zg, w_check = betas[:ct], betas[ct: 2 * ct], betas[2 * ct:]
 
@@ -575,8 +630,7 @@ def _deep_combo_evals(trace_blocks, trace_taps, check_evals, taps_check,
     inv_dens = F.ext_inv(dens)  # (3, cN, 4)
 
     # z- and zg-weighted sums read the same matrices: one 8-wide weighted sum
-    s_both = bbmm.bb_weighted_sum_blocks(trace_blocks,
-                                         torch.cat([w_z, w_zg], 1))
+    s_both = _trace_sums(trace_blocks, torch.cat([w_z, w_zg], 1))
     sums = (s_both[:, :EXT], s_both[:, EXT:],
             bbmm.bb_weighted_sum(check_evals, w_check))
 
@@ -589,6 +643,31 @@ def _deep_combo_evals(trace_blocks, trace_taps, check_evals, taps_check,
         num = F.ext_sub(s, cp.expand(s.shape))
         combo = F.ext_add(combo, F.ext_mul(num, inv_dens[i]))
     return combo
+
+
+def _trace_sums(trace_blocks, weights):
+    """Σ_j weights[j] P_j(x) over the trees' columns in order ((cN, W)
+    on the leader). Block k of every tree is position k of its tp group:
+    each position sums its own blocks on its own device against its rows
+    of `weights`, and the leader adds the (cN, W) partial sums mod P (the
+    sums are exact, so this is the one-device sum word for word)."""
+    by_pos, off = {}, 0
+    for tree in trace_blocks:
+        for k, b in enumerate(tree):
+            by_pos.setdefault(k, ([], []))
+            by_pos[k][0].append(b)
+            by_pos[k][1].append(weights[off: off + b.shape[1]])
+            off += b.shape[1]
+    if len(by_pos) == 1:
+        return bbmm.bb_weighted_sum_blocks(by_pos[0][0], weights)
+    total = None
+    for k, (blocks, rows) in by_pos.items():
+        w = torch.cat(rows, 0)
+        part = bbmm.bb_weighted_sum_blocks(
+            blocks, w if k == 0 else mesh.move(w, blocks[0].device))
+        part = part if k == 0 else mesh.move(part, weights.device)
+        total = part if total is None else F.add(total, part)
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -277,6 +277,9 @@ class CoprocRecReceipt:
     pub_vals: tuple
     po2: int
 
+    def claim_digest(self) -> tuple:
+        return self.claim.digest()
+
 
 COPROC_KINDS = ("lift_keccak", "union")
 

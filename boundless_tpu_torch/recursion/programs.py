@@ -39,9 +39,11 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core import field as F
 from ..core import fri
+from ..core import poseidon2_np as P2NP
 from . import vm
 
 P = F.P
@@ -754,3 +756,18 @@ def serialize_proof(air, proof, pub_flat: Sequence[int], po2: int, ps
                 out += _pack4(paths[q, d])
     return out
 
+
+def verifier_pub_vals(pub_flat: Sequence[int], control_root=None
+                      ) -> List[int]:
+    """Outer public values binding an inner proof: digest + control root.
+
+    `pub_flat`: canonical elements; `control_root`: Montgomery words (a
+    tensor on any device, or an array)."""
+    digest = (list(P2NP.hash_elems_np(pub_flat)) if len(pub_flat)
+              else [0] * 8)
+    if control_root is None:
+        return digest + [0] * 8
+    if not isinstance(control_root, torch.Tensor):
+        control_root = torch.from_numpy(
+            np.asarray(control_root, dtype=np.int64).astype(np.int32))
+    return digest + [int(x) for x in _canon(control_root)]

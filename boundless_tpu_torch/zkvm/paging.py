@@ -114,6 +114,10 @@ class PageTree:
         ws[off] = int(val)
         self.set_page(pg, ws)
 
+    def get_word(self, word_addr: int) -> int:
+        pg, off = divmod(int(word_addr), PAGE_WORDS)
+        return self.page_words(pg)[off]
+
     # -- hashing --------------------------------------------------------------
 
     def _node(self, d: int, idx: int) -> Digest:
@@ -156,3 +160,11 @@ def image_root(image) -> Digest:
     return PageTree.from_words(
         {a >> 2: int(v) for a, v in image.words.items()}).root()
 
+
+def apply_updates(root_pages: "PageTree", updates: Dict[int, List[int]]
+                  ) -> Digest:
+    """The root after replacing whole pages (the pages are replaced in
+    `root_pages`)."""
+    for idx, ws in updates.items():
+        root_pages.set_page(idx, ws)
+    return root_pages.root()

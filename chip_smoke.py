@@ -33,14 +33,19 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               2, 4 and 8 lanes a hash) at N in SPONGE_CHECK_N and at each
               crossover of kernels/poseidon2.LANE_CROSSOVER +- 1, x C in
               SPONGE_CHECK_C ("init": a permutation of a state), the main
-              path's sponge shapes, pairs at 2^17, the tree top at every
+              path's sponge shapes, the chained leaf hash of a
+              column-sharded commit (an init state and input columns, 24
+              or 8 words out) at N in SPONGE_CHAIN_N x C in SPONGE_CHAIN_C
+              in every layout (timed at SPONGE_CHAIN_TIMED with and
+              without the state), pairs at 2^17, the tree top at every
               level size up to tree_max(), and every level of merkle.commit
               at 2^18 x 392 against the plain level loop. Times (device
               time, the host's cost hidden behind a spin kernel where
               launches are short) every layout at SPONGE_TIME_SHAPES beside
-              the plain version, the throughput bound and the latency
-              bound, and a whole commit with its leaves, levels and tree
-              top apart (the sweeps of N for the crossovers and of the
+              the plain version (on at most PLAIN_TIMED_COLS columns), the
+              throughput bound and the latency bound, and a whole commit
+              with its leaves, levels and tree top apart, the plain level
+              loop and tree top beside them (the sweeps of N for the crossovers and of the
               tree top's size are `tools/sponge_variants.py --sweep`).
               NTT: the sub-transform at M in {2, 64, 512, 1024} x L in {1,
               7, 128, 392}, both directions, with the four-step store; the
@@ -97,9 +102,16 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               on a po2-8 loop-guest witness bumped the same way.
   6c. mesh    the main path's session (two po2-17 segments) proved by
               parallel/mesh.shard_batched_prover on a mesh of every card
-              (world size 1 here), each proof word for word equal to
-              stark.prove of the same trace on the card; sponge, NTT and
-              constraint kernel > 0; a mesh with tp = 2 refused.
+              (dp; world size 1 on one card) and on a (1, 2) mesh naming
+              the card twice (tp: each proof spread by trace columns,
+              data 208 | 184, ctrl 32 | 8), and with several cards on a
+              (1, count) mesh of distinct cards; each proof word for word
+              equal to stark.prove of the same trace on the card; sponge,
+              NTT and constraint kernel > 0 (and the weighted sum in the
+              tp proofs), the data group's leaf hash chained through the
+              sponge's initial state. Prints the tp walls, peaks and
+              launches beside the single proofs' and the bytes moved
+              between the tp group's positions.
   7. recursion the sponge at 2^21 x 64 in every layout, every level of its
               merkle.commit, and the NTT at 2^22 x 64 forward (three
               launches) bit for bit against their plain versions and
@@ -141,7 +153,9 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               control IDs JAX's in tests/data/torch_control_golden.npz,
               and the keccak circuit id equals JAX's; then the guest's
               batch as a KeccakAir
-              proof -> lift_keccak, the segment -> lift, resolve_coproc ->
+              proof, proved once more on a (1, 2) mesh naming the card
+              twice (data 2032 | 2016) and equal to it word for word, ->
+              lift_keccak, the segment -> lift, resolve_coproc ->
               finalize_session -> verify_session; then two chained random
               batches (42 + 17 permutations) -> lift_keccak each -> union
               over 0 -> 59. Tampers rejected: a bumped public state limb, a
@@ -160,9 +174,10 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               coproc 1 for B; DEFAULT_PS, segment po2 17, device cuda),
               reusing the systems [recursion] and [coproc] built: A, the
               loop guest in CLUSTER_SEGMENTS po2-17 segments on the rv32i
-              rec_po2-20 lattice (4 prove+lift tasks, a two-level join
-              tree); B, the keccak guest on the coproc lattices at rec_po2
-              21 (keccak batch, lift_keccak, resolve_coproc). Each session
+              rec_po2-20 lattice (2 prove+lift tasks and a join; cut
+              from 4 segments); B, the keccak guest on the coproc
+              lattices at rec_po2 21 (keccak batch, lift_keccak,
+              resolve_coproc). Each session
               runs first through a dev-mode cluster (DevModeSystem: the
               same claims, no proof); the real session's launch counts are
               zeroed just before its creation and read as it succeeds
@@ -287,6 +302,14 @@ SEED = 20260
 SPONGE_CHECK_N = (1, 2, 3, 31, 1000, 1 << 18)
 SPONGE_CHECK_C = ("init", 7, 16, 17, 392, 3904, 4048)
 LEAF_SHAPE = (1 << 18, 392)  # rv32i data group on the po2-17 commit domain
+# The chained leaf hash of a column-sharded commit (`merkle.commit` over
+# column blocks, the mesh's tp axis): a block's sponge from the (N, 24)
+# state the block before left, the whole state out. Every layout at these
+# rows by columns: the rv32i data group's tp-2 shards (208 | 184) and
+# ctrl's last (8) on the po2-17 commit domain, a KeccakAir shard (2016).
+SPONGE_CHAIN_N = (3, 1 << 11, (1 << 13) - 1, 1 << 13, (1 << 13) + 1, 1 << 18)
+SPONGE_CHAIN_C = (8, 184, 208, 2016)
+SPONGE_CHAIN_TIMED = (1 << 18, 208)
 # The DEEP-tap absorb of a KeccakAir proof: 4 words a tap, two taps of each
 # of its 32 + 4048 + 24 trace columns and one of the 16 check columns.
 KEC_DEEP_WORDS = 4 * (2 * (32 + 4048 + 24) + 16)
@@ -296,6 +319,10 @@ SPONGE_TIME_SHAPES = (("transcript permute", 1, 0),
                       ("KeccakAir DEEP absorb", 1, KEC_DEEP_WORDS),
                       ("KeccakAir leaves", 1 << 11, 4048),
                       ("main leaves", *LEAF_SHAPE))
+# The plain version of a timed shape runs on at most this many columns: the
+# KeccakAir DEEP absorb's 2,056 plain permutations one after another took
+# about a minute of the script's time limit.
+PLAIN_TIMED_COLS = 4096
 # Sponge inputs of the po2-17 rv32i main path: ctrl / data / accum / check
 # leaves on the 2^18-row commit domain, a FRI group matrix, the DEEP-tap
 # transcript absorb, and opened rows at 100 queries.
@@ -1025,6 +1052,17 @@ def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
                     hash_lanes(x[:n], lanes)
                 check(got, want[:n], f"lanes={lanes} N={n} C={c}")
         del x, want, got
+    for c in SPONGE_CHAIN_C:  # from an initial state, input columns
+        x = rand_words(rng, (SPONGE_CHAIN_N[-1], c), dev)
+        init = rand_words(rng, (SPONGE_CHAIN_N[-1], P2.WIDTH), dev)
+        want = P2.hash_rows(x, init=init, out_words=P2.WIDTH)
+        for n in SPONGE_CHAIN_N:
+            for lanes in P2K.LANES:
+                check(P2K._sponge(x[:n], init[:n], P2.WIDTH, lanes), want[:n],
+                      f"chained lanes={lanes} N={n} C={c}")
+        check(P2K.hash_rows(x, init), want[:, :P2.DIGEST_WORDS],
+              f"chained hash_rows N={SPONGE_CHAIN_N[-1]} C={c}, 8 words")
+        del x, init, want
     for n, c in MAIN_PATH_SHAPES:  # the default layout at the path's shapes
         x = rand_words(rng, (n, c), dev)
         check(P2K.hash_rows(x), P2.hash_rows(x), f"hash_rows N={n} C={c}")
@@ -1047,16 +1085,22 @@ def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
     say("kernel", kernel="poseidon2_sponge", layouts=",".join(
         f"lanes{g}" for g in P2K.LANES), rows=",".join(map(str, ns)),
         columns=",".join(map(str, SPONGE_CHECK_C)),
+        chained_rows=",".join(map(str, SPONGE_CHAIN_N)),
+        chained_columns=",".join(map(str, SPONGE_CHAIN_C)),
         tree_top_nodes=f"{tree_sizes[0]}..{tree_sizes[-1]}",
         commit_levels_checked=levels, checked=check.checked, tolerance=0,
         max_abs_err=check.max_err)
 
     stats = {}
     for what, n, c in SPONGE_TIME_SHAPES:
+        plain_c = c
         if c:
             x = rand_words(rng, (n, c), dev)
             fns = {g: (lambda g=g: hash_lanes(x, g)) for g in P2K.LANES}
-            plain = lambda: P2.hash_rows(x)  # noqa: E731
+            # the plain version on at most PLAIN_TIMED_COLS columns (a
+            # one-row absorb's chain is one plain permutation after another)
+            plain_c = min(c, PLAIN_TIMED_COLS)
+            plain = lambda: P2.hash_rows(x[:, :plain_c])  # noqa: E731
         else:
             x = rand_words(rng, (n, P2.WIDTH), dev)
             fns = {g: (lambda g=g: permute_lanes(x, g)) for g in P2K.LANES}
@@ -1070,7 +1114,8 @@ def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
             permutations_a_row=max(1, -(-c // P2.RATE)),
             **{f"lanes{g}_ms": f"{v:.4f}" for g, v in ms.items()},
             picked=f"lanes{picked}", kernel_ms=f"{ms[picked]:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+            plain_ms=f"{plain_ms:.4f}", plain_shape=f"{n}x{plain_c}",
+            bound_ms=f"{bms:.4f}", bound_by=by,
             latency_bound_ms=f"{lat_ms:.4f}")
         if (n, c) == LEAF_SHAPE:
             stats = dict(max_abs_err=check.max_err, ms=ms[picked],
@@ -1078,6 +1123,22 @@ def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
                          shape=f"{n}x{c}", plain_shape=f"{n}x{c}")
         del x
 
+    # a tp shard's leaf hash: from the zero state or from the state of the
+    # shard before, 8 or all 24 words out
+    n, c = SPONGE_CHAIN_TIMED
+    x = rand_words(rng, (n, c), dev)
+    init = rand_words(rng, (n, P2.WIDTH), dev)
+    chain_ms = {f"{'init' if i is not None else 'zero'}_out{w}_ms":
+                sponge_ms(lambda i=i, w=w: P2K.hash_rows(x, i, w), n, c)
+                for i, w in ((None, P2.DIGEST_WORDS), (None, P2.WIDTH),
+                             (init, P2.WIDTH), (init, P2.DIGEST_WORDS))}
+    bms, by, lat_ms = sponge_bounds(n, c, P2K.lanes_for(n), sm_clocks_per_s,
+                                    lat)
+    say("kernel", kernel="poseidon2_sponge", what="tp_shard_leaves",
+        shape=f"{n}x{c}", picked=f"lanes{P2K.lanes_for(n)}",
+        **{k: f"{v:.4f}" for k, v in chain_ms.items()},
+        bound_ms=f"{bms:.4f}", bound_by=by, latency_bound_ms=f"{lat_ms:.4f}")
+    del x, init
 
     # a whole commit of the main path's data group, and its parts
     from boundless_tpu_torch.core import merkle
@@ -1097,6 +1158,11 @@ def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
                         hashes * P2_MULS, hashes * (P2_ADDS + 16),
                         sm_clocks_per_s)
 
+    def levels_above_plain():
+        cur = leaves
+        while cur.shape[0] > P2K.TREE_TOP:
+            cur = P2.hash_rows(cur.view(-1, 2 * P2.DIGEST_WORDS))
+
     P2K.LAUNCHES = 0
     merkle.commit(leaf)
     levels_bms, levels_by = pair_bound(sum(t.shape[0] for t in tops[1:]))
@@ -1107,8 +1173,10 @@ def phase_kernel_sponge(dev, sm_clocks_per_s, lat):
         leaves_ms=f"{cuda_ms(lambda: P2K.hash_rows(leaf), 5):.4f}",
         levels_to_tree_top_ms=f"{device_ms(levels_above, 10):.4f}",
         level_launches=len(tops) - 1,
+        levels_to_tree_top_plain_ms=f"{once_ms(levels_above_plain):.4f}",
         levels_bound_ms=f"{levels_bms:.6g}", levels_bound_by=levels_by,
         tree_top_ms=f"{device_ms(lambda: P2K.hash_tree(tops[-1]), 20):.4f}",
+        tree_top_plain_ms=f"{once_ms(lambda: P2.hash_tree(tops[-1])):.4f}",
         tree_top_levels=tops[-1].shape[0].bit_length() - 1,
         tree_top_bound_ms=f"{top_bms:.6g}", tree_top_bound_by=top_by)
     return stats
@@ -1332,6 +1400,7 @@ def phase_kernel_bbmm(dev, sm_clocks_per_s):
             bms, by = bbmm_bound_ms(m, k, w, sm_clocks_per_s)
             fields.update(kernel_ms=f"{(k1 + k2) / 2:.4f}",
                           kernel_ms_turns=f"{k1:.4f},{k2:.4f}",
+                          plain_ms=f"{once_ms(plain):.4f}",
                           cat_then_first_design_ms=f"{(f1 + f2) / 2:.4f}",
                           bound_ms=f"{bms:.4f}", bound_by=by,
                           kernel_over_bound=f"{(k1 + k2) / 2 / bms:.2f}")
@@ -2308,6 +2377,38 @@ def phase_coproc(dev, cons_check):
         raise AssertionError("verify_keccak accepted a bumped state limb")
     if kec.digests() != list(ex.keccak_claims):
         raise AssertionError("batch digests differ from the ecall claims")
+    # the same batch by columns on a (1, 2) mesh that names the card twice
+    from boundless_tpu_torch.air import keccak as K
+    from boundless_tpu_torch.parallel import mesh as M
+
+    kdata, kpub, _ = K.witness(ex.keccak_states, KEC_PO2)
+    kdata = F.fp(kdata, dev)
+    kpub = K.PublicValues(states=F.fp(kpub["states"], dev))
+    kmesh = M.make_mesh(devices=[dev, dev], dp=1)
+    fn, shard_fn = M.shard_batched_prover(K.AIR, KEC_PO2, q50, kmesh)
+    tp, t_tp, tp_launches, moved, chained, peaks = mesh_run(
+        fn, shard_fn([kdata], [kpub], None), [dev])
+    # the single proof again, without the witness, timed the same way
+    single, t_single, _, _, _, single_peak = mesh_run(
+        lambda: [stark.prove(K.AIR, kdata, kpub, KEC_PO2, q50)], (), [dev])
+    del kdata
+    for k in coproc_launches:
+        coproc_launches[k] += tp_launches[k]
+    if not (same_proof(tp[0], kec.proof) and same_proof(single[0],
+                                                          kec.proof)):
+        raise AssertionError("[coproc] the tp-2 KeccakAir proof differs from "
+                             "the single proof")
+    if min(tp_launches[k] for k in ("poseidon2_sponge", "ntt_sub_transform",
+                                    "bb_weighted_sum")) <= 0:
+        raise AssertionError(f"[coproc] the tp-2 KeccakAir proof skipped a "
+                             f"kernel: {tp_launches}")
+    say("coproc", stage="keccak_proof guest tp2", vs_single="equal",
+        data_shards="|".join(str(b - a) for a, b in M.column_split(
+            K.AIR.data_cols, 2)), tp_s=f"{t_tp:.3f}",
+        single_s=f"{t_single:.3f}", max_memory_allocated=peaks[str(dev)],
+        single_max_memory_allocated=single_peak[str(dev)], moved_bytes=moved,
+        chained_sponge_launches=len(chained),
+        launches=json.dumps(tp_launches).replace(" ", ""))
     klift = counted("lift_keccak guest", lambda: csys.lift(kec), csys)
     chains = succinct.segment_pre_chains(ex, res)
     lift = counted("lift", lambda: system.lift(
@@ -2389,11 +2490,12 @@ def phase_coproc(dev, cons_check):
 # The proving cluster: sessions submitted over HTTP, proved on the card
 # ---------------------------------------------------------------------------
 
-# the loop guest's iterations (3 cycles each) for 3.5 po2-17 segments of
-# 130,940 cycles: 4 segments, so 4 prove+lift tasks and a two-level join
-# tree
-CLUSTER_ITERS = 7 * 130940 // 6
-CLUSTER_SEGMENTS = 4
+# the loop guest's iterations (3 cycles each) for 1.75 po2-17 segments of
+# 130,940 cycles: 2 segments, so 2 prove+lift tasks and one join (cut from
+# 4 segments and a two-level join tree to keep the whole script inside the
+# time it is allowed)
+CLUSTER_ITERS = 7 * 130940 // 12
+CLUSTER_SEGMENTS = 2
 CLUSTER_POOLS = {"exec": 1, "prove": 2, "join": 1, "aux": 1}
 CLUSTER_TIMEOUT_S = 600
 
@@ -2553,7 +2655,8 @@ def phase_cluster(dev, rec_system, coproc_system):
     """Two sessions through the port's cluster (REST API over localhost
     HTTP, worker threads, taskdb, planner, hot and object stores), proved
     on the card with the systems [recursion] and [coproc] built: A, the
-    loop guest in 4 po2-17 segments on the rv32i rec_po2-20 lattice; B,
+    loop guest in CLUSTER_SEGMENTS po2-17 segments on the rv32i rec_po2-20
+    lattice; B,
     the keccak guest on the coproc lattices at rec_po2 21."""
     import shutil
     import tempfile
@@ -2587,7 +2690,7 @@ def phase_cluster(dev, rec_system, coproc_system):
 # ---------------------------------------------------------------------------
 
 # the loop guest's iterations (3 cycles each): MARKET_ITERS is 1.75 po2-17
-# segments of 130,940 cycles (2 segments, about half of CLUSTER_ITERS),
+# segments of 130,940 cycles (2 segments, as CLUSTER_ITERS),
 # MARKET_ONE_ITERS half of one segment
 MARKET_ITERS = 7 * 130940 // 12
 MARKET_SEGMENTS = 2
@@ -3003,9 +3106,11 @@ def phase_kernel_p254(dev, sm_clocks_per_s, lat):
             check(g, w.to(dev), f"p254 tree top {m} level {d}")
         m *= 2
     tree = suite.commit(x64)
+    t0 = time.perf_counter()  # the plain commit: the host's Python ints
     ref = [P254K.hash_rows(x64.cpu())]
     while ref[-1].shape[0] > 1:
         ref.append(P254K.hash_level(ref[-1].view(-1, 16)))
+    commit_plain_ms = (time.perf_counter() - t0) * 1e3
     for d, (g, w) in enumerate(zip(tree.levels, ref)):
         check(g, w.to(dev), f"p254 commit level {d}")
     n, c = P254_TIME_SHAPE
@@ -3062,6 +3167,8 @@ def phase_kernel_p254(dev, sm_clocks_per_s, lat):
     # times: the host's cost hidden for the one-pair launch (device_ms)
     pair = leaves[:2].reshape(1, 16)
     pair_ms = device_ms(lambda: P254K.hash_level(pair, trusted=True), 20)
+    pair_plain_ms = host_ms(lambda: P254K.hash_level(pair.cpu(),
+                                                     trusted=True), 5)
     ms = cuda_ms(lambda: P254K.hash_rows(x), 3)
     levels_ms = cuda_ms(lambda: p254_levels(leaves), 3)
     tree_ms = cuda_ms(lambda: suite.commit(x), 2)
@@ -3094,6 +3201,7 @@ def phase_kernel_p254(dev, sm_clocks_per_s, lat):
         tolerance=0, max_abs_err=check.max_err)
     say("kernel", kernel="p254_sponge", lane_crossover=P254K.LANE_CROSSOVER,
         tree_top=P254K.TREE_TOP, one_pair_ms=f"{pair_ms:.4f}",
+        one_pair_plain_ms=f"{pair_plain_ms:.4f}",
         one_pair_latency_bound_ms=f"{bn_latency_ms(P254_PERM_DEPTH, lat):.4f}",
         shape=f"{n}x{c}", kernel_ms=f"{ms:.4f}", bound_ms=f"{bms:.4f}",
         bound_by=by, bound_parent_ms=f"{bms_par:.4f}",
@@ -3108,7 +3216,8 @@ def phase_kernel_p254(dev, sm_clocks_per_s, lat):
         commit_bound_by=tree_by, commit_bound_parent_ms=f"{tree_bms_par:.4f}",
         commit_latency_bound_ms=
         f"{bn_latency_ms((p254_chain(c) + depth) * P254_PERM_DEPTH, lat):.4f}",
-        plain_ms_1024x64=f"{plain_ms:.4f}")
+        plain_ms_1024x64=f"{plain_ms:.4f}",
+        commit_plain_ms_1024x64=f"{commit_plain_ms:.4f}")
     return dict(max_abs_err=check.max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, latency_bound_ms=lat_ms,
                 products=products, one_pair_ms=pair_ms, commit_ms=tree_ms,
@@ -3648,12 +3757,71 @@ def phase_debug(dev, w):
         cpu_s=f"{cpu_secs:.3f}", indices_vs_cpu="equal")
 
 
+class RecordChained:
+    """Records (rows, columns, out_words, from a state) of every
+    `kernels/poseidon2.hash_rows` call over input columns that starts from
+    a state or returns it whole (the parts of a chained leaf hash) while
+    active."""
+
+    def __enter__(self):
+        from boundless_tpu_torch.kernels import poseidon2 as P2K
+
+        self.seen = []
+        self._k, self._orig = P2K, P2K.hash_rows
+
+        def hash_rows(matrix, init=None, out_words=8):
+            if matrix.shape[1] and (init is not None or out_words > 8):
+                self.seen.append((matrix.shape[0], matrix.shape[1],
+                                  out_words, init is not None))
+            return self._orig(matrix, init, out_words)
+
+        P2K.hash_rows = hash_rows
+        return self
+
+    def __exit__(self, *exc):
+        self._k.hash_rows = self._orig
+
+
+def same_proof(got, want) -> bool:
+    from boundless_tpu_torch import convert
+
+    g, w = convert.proof_to_numpy(got), convert.proof_to_numpy(want)
+    return sorted(g) == sorted(w) and all(np.array_equal(g[k], w[k])
+                                          for k in g)
+
+
+def mesh_run(fn, placed, devices):
+    """One proving call on a mesh with the counts zeroed just before and
+    read right after: (proofs, wall s, launches, moved bytes, the chained
+    sponge launches, each device's peak allocated bytes)."""
+    from boundless_tpu_torch.parallel import mesh as M
+
+    devices = sorted(set(devices), key=str)
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    zero_counts()
+    M.MOVED_BYTES = 0
+    with RecordChained() as chained:
+        t0 = time.perf_counter()
+        proofs = fn(*placed)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+    return (proofs, wall, all_counts(), M.MOVED_BYTES, chained.seen,
+            {str(d): torch.cuda.max_memory_allocated(d) for d in devices})
+
+
 def phase_mesh(dev):
     """The main path's loop-guest session (two po2-17 segments) proved on
-    a world-size-1 mesh (`parallel/mesh.py`), each proof word for word
-    equal to `stark.prove` of the same trace on the card; a tp of 2
-    refused."""
-    from boundless_tpu_torch import convert
+    a mesh of every card (dp; world size 1 on one card) and on a (1, 2)
+    mesh that names the card twice (tp: each proof spread by trace
+    columns, `parallel/mesh.py`), and with more than one card on a
+    (1, count) mesh of distinct cards; each proof word for word equal to
+    `stark.prove` of the same trace on the card. Prints the walls, peaks
+    and launches of the tp proofs beside the single proofs', the bytes
+    moved between the tp group's positions and the chained leaf-hash
+    launches."""
     from boundless_tpu_torch.core import field as F
     from boundless_tpu_torch.parallel import mesh as M
     from boundless_tpu_torch.prover import stark
@@ -3676,40 +3844,87 @@ def phase_mesh(dev):
         raise AssertionError(f"[mesh] mesh {mesh.shape}")
     fn, shard_fn = M.shard_batched_prover(air, MAIN_PO2, prove.DEFAULT_PS,
                                           mesh)
-    zero_counts()
-    t0 = time.perf_counter()
-    proofs = fn(*shard_fn(data, pubs, ctrl))
-    torch.cuda.synchronize()
-    t_mesh = time.perf_counter() - t0
-    launches = all_counts()
+    proofs, t_mesh, launches, _, _, _ = mesh_run(
+        fn, shard_fn(data, pubs, ctrl), mesh.devices.flat)
     if min(launches[k] for k in ("poseidon2_sponge", "ntt_sub_transform",
                                  "cons_eval")) <= 0:
         raise AssertionError(f"[mesh] skipped a kernel: {launches}")
-    t0 = time.perf_counter()
-    singles = [stark.prove(air, d, p, MAIN_PO2, prove.DEFAULT_PS, ctrl)
-               for d, p in zip(data, pubs)]
-    torch.cuda.synchronize()
-    t_single = time.perf_counter() - t0
+
+    def prove_singles():
+        return [stark.prove(air, d, p, MAIN_PO2, prove.DEFAULT_PS, ctrl)
+                for d, p in zip(data, pubs)]
+
+    singles, t_single, single_launches, _, _, single_peak = mesh_run(
+        prove_singles, (), [dev])
     for i, (got, want) in enumerate(zip(proofs, singles)):
-        g, s_ = convert.proof_to_numpy(got), convert.proof_to_numpy(want)
-        if sorted(g) != sorted(s_) or any(not np.array_equal(g[k], s_[k])
-                                          for k in g):
+        if not same_proof(got, want):
             raise AssertionError(f"[mesh] segment {i}: the mesh proof "
                                  f"differs from stark.prove")
         if got.data_root.device != dev:
             raise AssertionError("[mesh] a proof did not run on the card")
-    try:
-        M.shard_batched_prover(air, MAIN_PO2, prove.DEFAULT_PS,
-                               M.make_mesh(devices=[dev, dev], dp=1))
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("[mesh] a mesh with tp = 2 was accepted")
     say("mesh", mesh=json.dumps(mesh.shape).replace(" ", ""),
         segments=len(proofs), variant=variant, po2=MAIN_PO2,
         mesh_s=f"{t_mesh:.3f}", single_s=f"{t_single:.3f}",
-        vs_stark_prove="equal", tp2="refused",
+        vs_stark_prove="equal",
         launches=json.dumps(launches).replace(" ", ""))
+
+    # tp: the same segments, each proof spread by columns over a group;
+    # on one card the group names it twice, timed in turns with the
+    # singles (single, tp, tp, single)
+    tp_meshes = [("card_twice", M.make_mesh(devices=[dev, dev], dp=1))]
+    if torch.cuda.device_count() > 1:
+        tp_meshes.append(("cards", M.make_mesh(dp=1)))
+    per_proof = {k: v // len(data) for k, v in single_launches.items()}
+    for name, tm in tp_meshes:
+        fn, shard_fn = M.shard_batched_prover(air, MAIN_PO2,
+                                              prove.DEFAULT_PS, tm)
+        placed = shard_fn(data, pubs, ctrl)
+        got, t_tp, tp_launches, moved, chained, peaks = mesh_run(
+            fn, placed, tm.devices.flat)
+        t_tp = [t_tp, mesh_run(fn, placed, tm.devices.flat)[1]]
+        del placed
+        t_single2 = mesh_run(prove_singles, (), [dev])[1]
+        for k, v in tp_launches.items():
+            launches[k] += v
+        for i, (g, want) in enumerate(zip(got, singles)):
+            if not same_proof(g, want):
+                raise AssertionError(f"[mesh] {name} segment {i}: the tp "
+                                     f"proof differs from stark.prove")
+            if g.data_root.device != tm.devices[0, 0]:
+                raise AssertionError(f"[mesh] {name}: a proof left the "
+                                     f"leader")
+        if min(tp_launches[k] for k in ("poseidon2_sponge",
+                                        "ntt_sub_transform", "cons_eval",
+                                        "bb_weighted_sum")) <= 0:
+            raise AssertionError(f"[mesh] {name} skipped a kernel: "
+                                 f"{tp_launches}")
+        widths = [b - a for a, b in M.column_split(air.data_cols,
+                                                   tm.devices.shape[1])]
+        # the data group's leaf hash: every shard but the last returns the
+        # whole state, every shard but the first starts from one
+        rows = prove.DEFAULT_PS.commit_expand << MAIN_PO2
+        want = {(rows, w, 24, i > 0) for i, w in
+                enumerate(widths[:-1])} | {(rows, widths[-1], 8,
+                                            True)}
+        if not want <= set(chained):
+            raise AssertionError(f"[mesh] {name}: the data leaves were not "
+                                 f"chained: {sorted(set(chained))}")
+        say("mesh", tp_mesh=name, shape=json.dumps(tm.shape).replace(" ", ""),
+            cards=len({str(d) for d in tm.devices.flat}),
+            segments=len(got), vs_stark_prove="equal",
+            data_shards="|".join(map(str, widths)),
+            ctrl_shards="|".join(str(b - a) for a, b in M.column_split(
+                air.ctrl_cols, tm.devices.shape[1])),
+            tp_s=",".join(f"{t:.3f}" for t in t_tp),
+            single_s=f"{t_single:.3f},{t_single2:.3f}",
+            tp_peak_bytes=json.dumps(peaks).replace(" ", ""),
+            single_peak_bytes=json.dumps(single_peak).replace(" ", ""),
+            moved_bytes_per_proof=moved // len(got),
+            chained_sponge_launches_per_proof=len(chained) // len(got),
+            launches_per_tp_proof=json.dumps(
+                {k: v // len(got) for k, v in tp_launches.items()}
+            ).replace(" ", ""),
+            launches_per_single_proof=json.dumps(per_proof).replace(" ", ""))
     return launches
 
 

@@ -105,6 +105,16 @@ def test_claim_of_batch_matches_receipt_digests_and_jax():
     assert cs.chain_step(h, d0) == JCS.chain_step(h, d0)
 
 
+def test_coproc_receipt_claim_digest_equals_jax():
+    r = _dev_receipt(4, 2)
+    args = dict(kind="lift_keccak", proof=None, pub_vals=(), po2=8)
+    got = cs.CoprocRecReceipt(claim=cs.CoprocClaim.of_batch(
+        (3,) * 8, r.states_pub, r.count), **args).claim_digest()
+    want = JCS.CoprocRecReceipt(claim=JCS.CoprocClaim.of_batch(
+        (3,) * 8, r.states_pub, r.count), **args).claim_digest()
+    assert got == want and len(got) == 8
+
+
 def test_claim_union_spans_and_rejects_discontinuity():
     r1, r2 = _dev_receipt(2, 2), _dev_receipt(3, 2)
     cid = (7,) * 8

@@ -5,7 +5,8 @@ both widths it takes, W = 4 and 8, K split over blocks, column-block
 tables and the α-combine through them, and its refusals: any other width,
 and the transposed view that `bb_weighted_sum_t` passes; the int8
 tensor-core product and ldmatrix wrappers of `csrc/ptx.cuh` against a
-numpy u8 product).
+numpy u8 product; an rv32i proof spread by trace columns over a
+mesh that names the card two or three times, against `stark.prove`).
 
 Marked `cuda`: the kernels have no CPU mode, so these skip on a host
 without an NVIDIA GPU. They import no JAX; run them on a GPU host (which
@@ -240,3 +241,34 @@ def test_weighted_sum_blocks_and_split_equal_plain(dev):
         got = B.bb_weighted_sum(v, wt)
         assert BK.LAUNCHES == before + BK.launches_of(m, k, sms) == before + 2
         assert torch.equal(got, B.bb_weighted_sum_plain(v, wt)), (m, k, w)
+
+
+@pytest.mark.parametrize("tp", [2, 3])
+def test_tp_proof_equals_stark_prove(dev, tp):
+    """An rv32i po2-8 proof spread by trace columns over a (1, tp) mesh
+    that names the card tp times (`parallel/mesh.py`: data 208 | 184 at
+    tp 2, its leaf hash chained through the sponge's initial state) equals
+    `stark.prove` of the whole trace word for word."""
+    from boundless_tpu_torch import convert
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+    from boundless_tpu_torch.parallel import mesh as M
+
+    po2 = 8
+    image = guests.loop_guest()
+    seg = Executor(image, guests.words([50]), segment_po2=po2).run().segments[0]
+    w = W.trace_segment(image, seg, po2, rng=np.random.default_rng(2))
+    air = prove._AIRS["rv32i"]
+    data = F.fp(W.data_for_variant(w.data, "rv32i"), dev)
+    ctrl = F.fp(w.ctrl, dev)
+    pub = W.to_public_values(w.pub, dev)
+    want = convert.proof_to_numpy(stark.prove(air, data, pub, po2,
+                                              prove.TEST_PS, ctrl))
+    fn, shard_fn = M.shard_batched_prover(
+        air, po2, prove.TEST_PS, M.make_mesh(devices=[dev] * tp, dp=1))
+    placed = shard_fn([data], [pub], ctrl)
+    before = P2K.LAUNCHES
+    got = convert.proof_to_numpy(fn(*placed)[0])
+    assert P2K.LAUNCHES > before
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

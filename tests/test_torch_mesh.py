@@ -4,7 +4,7 @@ segments (TEST_PS, rv32im); each proof equals `stark.prove` of that
 segment alone word for word, and the golden segment's proof equals the
 JAX package's in `tests/data/torch_golden_po2_8.npz` (tolerance 0: field
 words). The reference's (dp, tp) factorisation, and a mesh with tp > 1
-refused (column sharding is not ported)."""
+giving a prover (its proofs: `tests/test_torch_mesh_tp.py`)."""
 
 import os
 
@@ -91,11 +91,17 @@ def test_batched_publics_unbatch(batch):
             assert torch.equal(getattr(p, f), getattr(want, f))
 
 
-def test_tp_above_one_raises():
+def test_tp_mesh_gives_a_prover():
+    """A (1, 2) mesh proves by columns (its proofs: test_torch_mesh_tp.py);
+    the factorisation stays the reference's."""
+    from boundless_tpu.parallel import mesh as JM
+
     mesh = M.make_mesh(devices=["cpu", "cpu"], dp=1)
     assert mesh.shape == {"dp": 1, "tp": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.shard_batched_prover(AIR, PO2, prove.TEST_PS, mesh)
+    fn, shard_fn = M.shard_batched_prover(AIR, PO2, prove.TEST_PS, mesh)
+    assert callable(fn) and callable(shard_fn)
+    assert M.make_mesh(devices=["cpu"] * 6).shape == dict(
+        JM.make_mesh(6).shape) == {"dp": 2, "tp": 3}
 
 
 @pytest.mark.parametrize("n,dp,tp", [(1, 1, 1), (2, 2, 1), (4, 4, 1),

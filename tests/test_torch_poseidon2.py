@@ -103,6 +103,7 @@ def test_merkle_commit_open_verify(n, cols):
     jtree = JM.commit(j(x))
     for lvl, jlvl in zip(tree.levels, jtree.levels):
         same(lvl, jlvl)
+    assert tree.num_leaves == jtree.num_leaves == n
     idx = np.array([0, n - 1, n // 2, 0], dtype=np.int64) % n
     rows, paths = M.open_rows(tree, torch.from_numpy(idx))
     jrows, jpaths = JM.open_rows(jtree, jnp.asarray(idx.astype(np.int32)))

@@ -453,10 +453,14 @@ def emulated(tmp_path_factory):
 
 @pytest.mark.parametrize("group", GROUPS)
 def test_cuda_source_sponge_on_emulated_warps(emulated, group):
-    for n, cols in ((1, 0), (3, 7), (31, 16), (5, 17), (2, 392), (20, 15)):
+    # with an init state: the transcript's permute (C = 0) and a chained
+    # leaf hash's shard (C > 0, the whole state out)
+    for n, cols, chained in ((1, 0, True), (3, 7, False), (31, 16, False),
+                             (5, 17, False), (2, 392, False), (20, 15, False),
+                             (4, 32, True), (9, 8, True)):
         x = words((n, cols), 7 * n + cols)
-        init = words((n, P2.WIDTH), n) if cols == 0 else None
-        out_words = P2.WIDTH if cols == 0 else P2.DIGEST_WORDS
+        init = words((n, P2.WIDTH), n) if chained else None
+        out_words = P2.WIDTH if chained else P2.DIGEST_WORDS
         want = P2.hash_rows(t(x), init=None if init is None else t(init),
                             out_words=out_words)
         xa = np.ascontiguousarray(x.astype(np.uint32))

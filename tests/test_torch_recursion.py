@@ -176,9 +176,41 @@ def test_paging_roots_and_walk_equal():
         JPG.PageTree.from_words(words).root()
 
 
+def test_paging_get_word_and_apply_updates_equal():
+    rng = np.random.default_rng(15)
+    words = {int(a): int(v) for a, v in zip(
+        rng.integers(0, 1 << 16, 30), rng.integers(0, 1 << 32, 30))}
+    t, j = paging.PageTree.from_words(words), JPG.PageTree.from_words(words)
+    for wa in list(words)[:5] + [3, 1 << 20]:
+        assert t.get_word(wa) == j.get_word(wa)
+    updates = {int(p): [int(v) for v in rng.integers(0, 1 << 32, 64)]
+               for p in rng.integers(0, 1 << 10, 3)} | {1 << 17: [0] * 64}
+    assert paging.apply_updates(t, updates) == JPG.apply_updates(j, updates)
+    assert t.root() == j.root()
+    assert t.get_word(next(iter(updates)) * 64 + 7) == \
+        updates[next(iter(updates))][7]
+
+
 # ---------------------------------------------------------------------------
 # programs: ROMs word for word
 # ---------------------------------------------------------------------------
+
+
+def test_verifier_pub_vals_equal_jax():
+    from boundless_tpu.recursion import programs as JP
+    from boundless_tpu_torch.recursion import programs
+
+    rng = np.random.default_rng(16)
+    pub = [int(x) for x in rng.integers(0, F.P, 45)]
+    root = rng.integers(0, F.P, 8).astype(np.uint32)  # Montgomery words
+    t_root = torch.from_numpy(root.astype(np.int32))
+    for flat, jr, tr in ((pub, root, t_root), (pub, root, root),
+                         (pub[:3], root ^ 2, torch.from_numpy(
+                             (root ^ 2).astype(np.int32))),
+                         (pub, None, None), ([], root, t_root)):
+        want = JP.verifier_pub_vals(flat, jr)
+        got = programs.verifier_pub_vals(flat, tr)
+        assert got == [int(x) for x in want] and len(got) == 16
 
 
 @pytest.mark.parametrize("variant", ["rv32im", "rv32i"])
