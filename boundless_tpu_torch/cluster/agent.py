@@ -41,6 +41,7 @@ from .taskdb import MemoryBackend
 from ..prover import stark
 from ..recursion import claims, succinct
 from ..recursion import receipt as rec
+from ..utils import profiling
 from ..zkvm import prove as zprove
 from ..zkvm.executor import Executor, MemoryImage
 
@@ -155,7 +156,9 @@ class Agent:
 
             try:
                 with M.REGISTRY.histogram(M.TASK_DURATION,
-                                          stream=self.stream).time():
+                                          stream=self.stream).time(), \
+                        profiling.span(f"task.{task.definition['kind']}",
+                                       job=task.job_id, task=task.task_id):
                     output, cleanup = self.process_work(task)
                 self.ctx.db.update_task_done(task.job_id, task.task_id,
                                              output or {})

@@ -4,9 +4,10 @@ The port's copy of `boundless_tpu/cluster/metrics.py` (plain Python).
 
 Re-design of the reference's metric registry (`prover/crates/
 workflow-common/src/metrics.rs:13-197`): task queue depth by
-(stream, priority, state), cycle counters, claim/processing/retry
-counters, operation-latency histograms — exposed in text exposition
-format via the cluster API.
+(stream, priority, state), processing/retry counters, task wait and
+duration histograms, and the seconds of the tracer's spans
+(`utils/profiling.py`) — exposed in text exposition format via the
+cluster API.
 """
 
 from __future__ import annotations
@@ -110,5 +111,7 @@ TASK_QUEUE_DEPTH = "task_queue_depth"
 TASKS_PROCESSED = "tasks_processed_total"
 TASKS_RETRIED = "tasks_retried_total"
 TASK_DURATION = "task_duration_seconds"
-CYCLES_PROVED = "cycles_proved_total"
-STORE_OP_DURATION = "store_op_duration_seconds"
+# seconds from a task's becoming ready to its claim (`taskdb.request_work`)
+TASK_WAIT = "task_wait_seconds"
+# seconds of each closed span of the tracer (`utils/profiling.py`)
+SPAN_SECONDS = "span_seconds"

@@ -37,6 +37,8 @@ import time
 import uuid
 from typing import Optional
 
+from . import metrics as M
+
 
 class TaskState(str, enum.Enum):
     PENDING = "pending"
@@ -74,6 +76,7 @@ class Task:
     created_at: float = 0.0
     started_at: float = 0.0
     updated_at: float = 0.0
+    ready_at: float = 0.0  # when it last became ready (MemoryBackend)
 
 
 class JobState(str, enum.Enum):
@@ -189,6 +192,7 @@ class MemoryBackend:
             self._push_ready(t)
 
     def _push_ready(self, t: Task):
+        t.ready_at = time.time()
         self._seq += 1
         self.ready.setdefault(t.stream, []).append((-int(t.priority), self._seq,
                                                     (t.job_id, t.task_id)))
@@ -205,9 +209,12 @@ class MemoryBackend:
                     _, _, key = q.pop(self._select_fair(stream, q))
                     t = self.tasks[key]
                     t.state = TaskState.RUNNING
-                    t.started_at = t.started_at or time.time()
-                    t.updated_at = time.time()
-                    t.lease_deadline = time.time() + t.timeout_secs
+                    now = time.time()
+                    t.started_at = t.started_at or now
+                    t.updated_at = now
+                    t.lease_deadline = now + t.timeout_secs
+                    M.REGISTRY.histogram(M.TASK_WAIT, stream=stream).observe(
+                        now - t.ready_at)
                     return t
                 remaining = deadline - time.time()
                 if remaining <= 0:

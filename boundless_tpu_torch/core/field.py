@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 P = 2013265921  # 15 * 2**27 + 1
 TWO_ADICITY = 27
 GENERATOR = 31  # multiplicative generator of F_p^*
@@ -98,6 +100,14 @@ def from_mont(x):
 def fp(x, device="cpu"):
     """Python / numpy canonical ints -> Montgomery int32 tensor."""
     return torch.from_numpy(mont_np(x).astype(np.int32)).to(device)
+
+
+def upload(words, device):
+    """A trace handed from the host to `device`: canonical words ->
+    Montgomery int32 there, the conversion and the copy under one
+    synchronised `upload` span of the tracer."""
+    with profiling.span("upload", sync=True, device=device):
+        return fp(words, device)
 
 
 def const(c: int, device="cpu"):

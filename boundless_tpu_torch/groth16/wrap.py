@@ -7,7 +7,8 @@ Merkle hash through the CUDA sponge, and the CRS prover's MSMs through
 the CUDA Pippenger (`qap.prove_sparse(device=)`). A `WrapKey`'s `seconds`
 holds the host clock of its stages: `r1cs_layout` and `setup` when it was
 built, `concrete_build` and `prove` of the latest compress over it (the
-identity shrink's are in `P254System.seconds`). The prover mode
+identity shrink's are the tracer's `rec.shrink` span and its children,
+`utils/profiling.py`). The prover mode
 (`_prover_mode`) reads one setting, BT_GROTH16_CRS (a ceremony CRS file),
 and otherwise the 200,000-variable line.
 

@@ -40,6 +40,7 @@ from ..core import ntt as NTT
 from ..core.ntt import _powers as _np_powers
 from ..air.dsl import Air, BaseAlg, ExtAlg, Columns
 from ..parallel import mesh
+from ..utils import profiling
 
 INV_RATE = 4
 EXT = 4
@@ -503,112 +504,129 @@ def prove(air: Air, data_trace, pub, po2: int,
             ctrl_trace.leader != dev:
         raise ValueError(f"ctrl's leader {ctrl_trace.leader} is not the "
                          f"data's {dev}")
+    with profiling.span("stark.prove", sync=True, device=dev, po2=po2):
+        return _prove(air, data_trace, pub, po2, ps, ctrl_trace, dev)
 
+
+def _stage(name: str, dev):
+    """A synchronised span of one stage of `prove`."""
+    return profiling.span(name, sync=True, device=dev)
+
+
+def _prove(air, data_trace, pub, po2, ps, ctrl_trace, dev) -> SegmentProof:
+    n = 1 << po2
     suite = ps.suite()
     tr = suite.transcript(dev)
     tr.mix_pub(pub)
 
     has_ctrl = air.ctrl_cols > 0
     has_accum = air.accum_cols > 0
-    if has_ctrl and ctrl_trace is None:
-        assert not getattr(air, "ctrl_dynamic", False), \
-            "this AIR requires a ctrl_trace argument"
-        ctrl_trace = air.ctrl_trace(n, dev)
     ctrl_evals = accum_evals = None
-    if has_ctrl:
-        ctrl_coeffs, ctrl_evals, ctrl_tree = _lde_commit(
-            ctrl_trace, ps.commit_expand, suite)
-        tr.mix_digest(ctrl_tree.root)
-    data_coeffs, data_evals, data_tree = _lde_commit(
-        data_trace, ps.commit_expand, suite)
-    tr.mix_digest(data_tree.root)
+    with _stage("stark.commit", dev):
+        if has_ctrl and ctrl_trace is None:
+            assert not getattr(air, "ctrl_dynamic", False), \
+                "this AIR requires a ctrl_trace argument"
+            ctrl_trace = air.ctrl_trace(n, dev)
+        if has_ctrl:
+            ctrl_coeffs, ctrl_evals, ctrl_tree = _lde_commit(
+                ctrl_trace, ps.commit_expand, suite)
+            tr.mix_digest(ctrl_tree.root)
+        data_coeffs, data_evals, data_tree = _lde_commit(
+            data_trace, ps.commit_expand, suite)
+        tr.mix_digest(data_tree.root)
 
     # --- phase 2: mix challenges + accumulators ---
-    globals_ = (torch.stack([tr.sample_ext() for _ in range(air.globals_count)])
-                if air.globals_count else torch.zeros((0, EXT), dtype=F.I32,
-                                                      device=dev))
-    if has_accum:
-        accum_trace = air.accum_trace(
-            None if ctrl_trace is None else _whole(ctrl_trace),
-            _whole(data_trace), globals_)
-        accum_coeffs, accum_evals, accum_tree = _lde_commit(
-            accum_trace, ps.commit_expand, suite)
-        tr.mix_digest(accum_tree.root)
-
-    alpha = tr.sample_ext()
+    with _stage("stark.accum", dev):
+        globals_ = (torch.stack([tr.sample_ext()
+                                 for _ in range(air.globals_count)])
+                    if air.globals_count else
+                    torch.zeros((0, EXT), dtype=F.I32, device=dev))
+        if has_accum:
+            accum_trace = air.accum_trace(
+                None if ctrl_trace is None else _whole(ctrl_trace),
+                _whole(data_trace), globals_)
+            accum_coeffs, accum_evals, accum_tree = _lde_commit(
+                accum_trace, ps.commit_expand, suite)
+            tr.mix_digest(accum_tree.root)
 
     # --- composition polynomial ---
-    fused = _fused_route(air, dev)
-    q_coeffs = _quotient_coeffs(air, po2, (ctrl_evals, data_evals,
-                                           accum_evals), globals_, pub,
-                                alpha, fused)
+    with _stage("stark.quotient", dev):
+        alpha = tr.sample_ext()
+        fused = _fused_route(air, dev)
+        q_coeffs = _quotient_coeffs(air, po2, (ctrl_evals, data_evals,
+                                               accum_evals), globals_, pub,
+                                    alpha, fused)
 
     # Split Q(x) = Σ_i x^i Q_i(x^4); commit the 16 base component columns.
-    check_coeffs = torch.cat(
-        [q_coeffs[i::CHECK_SPLIT] for i in range(CHECK_SPLIT)], dim=1)
-    check_evals = NTT.coset_evaluate(check_coeffs, expand=ps.commit_expand)
-    check_tree = suite.commit(check_evals)
-    tr.mix_digest(check_tree.root)
+    with _stage("stark.check", dev):
+        check_coeffs = torch.cat(
+            [q_coeffs[i::CHECK_SPLIT] for i in range(CHECK_SPLIT)], dim=1)
+        check_evals = NTT.coset_evaluate(check_coeffs,
+                                         expand=ps.commit_expand)
+        check_tree = suite.commit(check_evals)
+        tr.mix_digest(check_tree.root)
 
-    # --- DEEP taps ---
-    z = tr.sample_ext()
-    z_, zg, z4 = _deep_points(z, n)
+    # --- DEEP taps and combination (on the commit domain) ---
+    with _stage("stark.deep", dev):
+        z = tr.sample_ext()
+        z_, zg, z4 = _deep_points(z, n)
 
-    def taps_of(coeffs):
-        """(C, 2, 4) taps at z and z*g_N of each block's columns on its
-        own device, joined in column order on the leader."""
-        parts = []
-        for k, c in enumerate(coeffs):
-            at = (z_, zg) if k == 0 else (mesh.move(z_, c.device),
-                                          mesh.move(zg, c.device))
-            t = torch.stack([NTT.eval_poly_ext(c, x) for x in at], dim=1)
-            parts.append(t if k == 0 else mesh.move(t, dev))
-        return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+        def taps_of(coeffs):
+            """(C, 2, 4) taps at z and z*g_N of each block's columns on its
+            own device, joined in column order on the leader."""
+            parts = []
+            for k, c in enumerate(coeffs):
+                at = (z_, zg) if k == 0 else (mesh.move(z_, c.device),
+                                              mesh.move(zg, c.device))
+                t = torch.stack([NTT.eval_poly_ext(c, x) for x in at], dim=1)
+                parts.append(t if k == 0 else mesh.move(t, dev))
+            return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
-    taps_ctrl = taps_of(ctrl_coeffs) if has_ctrl else None
-    taps_data = taps_of(data_coeffs)
-    taps_accum = taps_of(accum_coeffs) if has_accum else None
-    taps_check = NTT.eval_poly_ext(check_coeffs, z4)
+        taps_ctrl = taps_of(ctrl_coeffs) if has_ctrl else None
+        taps_data = taps_of(data_coeffs)
+        taps_accum = taps_of(accum_coeffs) if has_accum else None
+        taps_check = NTT.eval_poly_ext(check_coeffs, z4)
 
-    all_taps = [t for t in (taps_ctrl, taps_data, taps_accum) if t is not None]
-    tr.mix_elems(torch.cat([t.reshape(-1) for t in all_taps]
-                           + [taps_check.reshape(-1)]))
+        all_taps = [t for t in (taps_ctrl, taps_data, taps_accum)
+                    if t is not None]
+        tr.mix_elems(torch.cat([t.reshape(-1) for t in all_taps]
+                               + [taps_check.reshape(-1)]))
 
-    # --- DEEP combination (on the commit domain) ---
-    beta = tr.sample_ext()
-    trees = [t for t, present in ((ctrl_tree if has_ctrl else None, has_ctrl),
-                                  (data_tree, True),
-                                  (accum_tree if has_accum else None,
-                                   has_accum)) if present]
-    trace_taps = torch.cat(all_taps, dim=0)
-    combo = _deep_combo_evals([t.blocks for t in trees], trace_taps,
-                              check_evals,
-                              taps_check, beta, z_, zg, z4, n,
-                              ps.commit_expand)
+        beta = tr.sample_ext()
+        trees = [t for t, present in (
+            (ctrl_tree if has_ctrl else None, has_ctrl), (data_tree, True),
+            (accum_tree if has_accum else None, has_accum)) if present]
+        trace_taps = torch.cat(all_taps, dim=0)
+        combo = _deep_combo_evals([t.blocks for t in trees], trace_taps,
+                                  check_evals,
+                                  taps_check, beta, z_, zg, z4, n,
+                                  ps.commit_expand)
 
-    # --- FRI ---
-    fri_proof, indices = fri.prove(tr, combo, queries=ps.queries,
-                                   min_degree=ps.fri_min_degree,
-                                   inv_rate=ps.commit_expand, suite=suite)
+    # --- FRI and the openings of every group at its query points ---
+    with _stage("stark.fri", dev):
+        fri_proof, indices = fri.prove(tr, combo, queries=ps.queries,
+                                       min_degree=ps.fri_min_degree,
+                                       inv_rate=ps.commit_expand,
+                                       suite=suite)
 
-    def open_group(tree):
-        return GroupOpening(*merkle.open_rows(tree, indices))
+        def open_group(tree):
+            return GroupOpening(*merkle.open_rows(tree, indices))
 
-    return SegmentProof(
-        ctrl_root=ctrl_tree.root if has_ctrl else None,
-        data_root=data_tree.root,
-        accum_root=accum_tree.root if has_accum else None,
-        check_root=check_tree.root,
-        taps_ctrl=taps_ctrl,
-        taps_data=taps_data,
-        taps_accum=taps_accum,
-        taps_check=taps_check,
-        open_ctrl=open_group(ctrl_tree) if has_ctrl else None,
-        open_data=open_group(data_tree),
-        open_accum=open_group(accum_tree) if has_accum else None,
-        open_check=open_group(check_tree),
-        fri_proof=fri_proof,
-    )
+        return SegmentProof(
+            ctrl_root=ctrl_tree.root if has_ctrl else None,
+            data_root=data_tree.root,
+            accum_root=accum_tree.root if has_accum else None,
+            check_root=check_tree.root,
+            taps_ctrl=taps_ctrl,
+            taps_data=taps_data,
+            taps_accum=taps_accum,
+            taps_check=taps_check,
+            open_ctrl=open_group(ctrl_tree) if has_ctrl else None,
+            open_data=open_group(data_tree),
+            open_accum=open_group(accum_tree) if has_accum else None,
+            open_check=open_group(check_tree),
+            fri_proof=fri_proof,
+        )
 
 
 def _deep_combo_evals(trace_blocks, trace_taps, check_evals, taps_check,

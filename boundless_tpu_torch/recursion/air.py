@@ -326,8 +326,8 @@ def rom_trace(prog: vm.Prog, n: int, device) -> torch.Tensor:
 
 def data_trace(prog: vm.Prog, inputs, pub_vals, device) -> torch.Tensor:
     """Execute the program (the C++ evaluator) -> Montgomery data trace
-    on `device`."""
-    return F.fp(vm.evaluate_native(prog, inputs, pub_vals), device)
+    on `device` (`field.upload`)."""
+    return F.upload(vm.evaluate_native(prog, inputs, pub_vals), device)
 
 
 def pub_array(pub_vals, device) -> torch.Tensor:

@@ -46,11 +46,12 @@ from ..air import keccak as K
 from ..core import field as F
 from ..core import poseidon2_np as P2NP
 from ..prover import stark
+from ..utils import profiling
 from ..zkvm import coproc as zco
 from ..zkvm.prove import _device
 from . import air as rair
 from . import claims, programs, vm
-from .succinct import _const4, _pack4, _select2, _sync
+from .succinct import _const4, _pack4, _select2
 
 P = F.P
 
@@ -305,8 +306,9 @@ class CoprocSystem:
     control IDs and every proof live there.
 
     `seconds` holds the host clock of the set-up stages (`program_build`,
-    `control_ids`) and of the stages of the latest proof (`witness`,
-    `native_eval`, `prove`), as `SuccinctSystem` keeps them."""
+    `control_ids`); each proof runs under the tracer's span `rec.<kind>`
+    with children `rec.witness`, `rec.native_eval` and `rec.prove`, as
+    `SuccinctSystem`'s do."""
 
     def __init__(self, params: CoprocParams, device="cuda"):
         self.params = params
@@ -339,20 +341,19 @@ class CoprocSystem:
         return tuple(list(claim.digest()) + list(self.allowed_root)
                      + [0] * 8)
 
+    def _span(self, name: str):
+        return profiling.span(name, sync=True, device=self.device)
+
     def _prove(self, kind: str, inputs, claim: CoprocClaim
                ) -> CoprocRecReceipt:
         pub_vals = self._pub_vals(claim)
-        t0 = time.perf_counter()
-        data = rair.data_trace(self.progs[kind], inputs, pub_vals,
-                               self.device)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        proof = stark.prove(rair.AIR, data, rair.pub_array(
-            pub_vals, self.device), self.params.rec_po2, self.params.rec_ps,
-            self.roms[kind])
-        _sync(self.device)
-        self.seconds["native_eval"] = t1 - t0
-        self.seconds["prove"] = time.perf_counter() - t1
+        with self._span("rec.native_eval"):
+            data = rair.data_trace(self.progs[kind], inputs, pub_vals,
+                                   self.device)
+        with self._span("rec.prove"):
+            proof = stark.prove(rair.AIR, data, rair.pub_array(
+                pub_vals, self.device), self.params.rec_po2,
+                self.params.rec_ps, self.roms[kind])
         return CoprocRecReceipt(kind=kind, proof=proof, claim=claim,
                                 pub_vals=pub_vals, po2=self.params.rec_po2)
 
@@ -360,18 +361,16 @@ class CoprocSystem:
              pre_chain: Sequence[int] = claims.ZERO_CHAIN,
              pre_count: int = 0) -> CoprocRecReceipt:
         """Keccak batch receipt -> succinct coproc receipt."""
-        t0 = time.perf_counter()
-        cid = zco.circuit_id(self.params.kec_po2, self.params.kec_ps,
-                             self.device)
-        claim = CoprocClaim.of_batch(cid, kec_receipt.states_pub,
-                                     kec_receipt.count, pre_chain,
-                                     pre_count)
-        wit = lift_witness(kec_receipt, self.params.kec_po2,
-                           self.params.kec_ps, pre_chain, pre_count)
-        witness_s = time.perf_counter() - t0
-        r = self._prove("lift_keccak", wit, claim)
-        self.seconds["witness"] = witness_s
-        return r
+        with self._span("rec.lift_keccak"):
+            with profiling.span("rec.witness"):
+                cid = zco.circuit_id(self.params.kec_po2,
+                                     self.params.kec_ps, self.device)
+                claim = CoprocClaim.of_batch(cid, kec_receipt.states_pub,
+                                             kec_receipt.count, pre_chain,
+                                             pre_count)
+                wit = lift_witness(kec_receipt, self.params.kec_po2,
+                                   self.params.kec_ps, pre_chain, pre_count)
+            return self._prove("lift_keccak", wit, claim)
 
     def child_witness(self, child: CoprocRecReceipt) -> List[tuple]:
         """Witness stream for one `verify_child_coproc` call (also the
@@ -389,13 +388,11 @@ class CoprocSystem:
 
     def union(self, left: CoprocRecReceipt, right: CoprocRecReceipt
               ) -> CoprocRecReceipt:
-        t0 = time.perf_counter()
-        claim = left.claim.union(right.claim)
-        wit = self.child_witness(left) + self.child_witness(right)
-        witness_s = time.perf_counter() - t0
-        r = self._prove("union", wit, claim)
-        self.seconds["witness"] = witness_s
-        return r
+        with self._span("rec.union"):
+            with profiling.span("rec.witness"):
+                claim = left.claim.union(right.claim)
+                wit = self.child_witness(left) + self.child_witness(right)
+            return self._prove("union", wit, claim)
 
     def verify(self, r: CoprocRecReceipt) -> bool:
         """One STARK + public-value binding, on the proof's device."""

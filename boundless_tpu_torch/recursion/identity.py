@@ -16,9 +16,10 @@ at ~240 constraints per permutation instead of emulating Baby Bear
 Poseidon2. On the card every Merkle hash of the proof runs through the
 p254 sponge kernel (`kernels/poseidon254.py`); RecursionAir takes the
 eager quotient as in every recursion proof. `seconds` holds the host
-clock (after a synchronize) of the set-up stages (`program_build`,
-`control_id`), of the latest shrink (`witness`, `native_eval`, `prove`)
-and of the latest `verify`.
+clock of the set-up stages (`program_build`, `control_id`) and of the
+latest `verify`; a shrink runs under the tracer's span `rec.shrink`
+(`utils/profiling.py`) with children `rec.witness`, `rec.native_eval`
+and `rec.prove`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Dict
 
 from ..kernels import poseidon254 as P254K
 from ..prover import stark
+from ..utils import profiling
 from . import air as rair
 from . import claims, succinct, vm
 
@@ -95,22 +97,19 @@ class P254System:
 
     def shrink(self, root: succinct.RecReceipt) -> P254Receipt:
         """Root recursion receipt -> p254 final-shrink receipt."""
-        sys_ = self.system
-        t0 = time.perf_counter()
-        wit = succinct._child_witness(
-            root, sys_._kind_index(root.kind), sys_.allowed_ids,
-            sys_.params.rec_ps)
-        pub_vals = tuple(root.pub_vals)
-        t1 = time.perf_counter()
-        data = rair.data_trace(self.prog, wit, pub_vals, self.device)
-        succinct._sync(self.device)
-        t2 = time.perf_counter()
-        proof = stark.prove(rair.AIR, data,
-                            rair.pub_array(pub_vals, self.device), self.po2,
-                            self.ps254, self.rom)
-        succinct._sync(self.device)
-        self.seconds.update(witness=t1 - t0, native_eval=t2 - t1,
-                            prove=time.perf_counter() - t2)
+        sys_ = self.system  # its spans wait for this system's device
+        with sys_._span("rec.shrink"):
+            with profiling.span("rec.witness"):
+                wit = succinct._child_witness(
+                    root, sys_._kind_index(root.kind), sys_.allowed_ids,
+                    sys_.params.rec_ps)
+                pub_vals = tuple(root.pub_vals)
+            with sys_._span("rec.native_eval"):
+                data = rair.data_trace(self.prog, wit, pub_vals, self.device)
+            with sys_._span("rec.prove"):
+                proof = stark.prove(rair.AIR, data,
+                                    rair.pub_array(pub_vals, self.device),
+                                    self.po2, self.ps254, self.rom)
         return P254Receipt(proof=proof, claim=root.claim,
                            pub_vals=pub_vals, po2=self.po2)
 

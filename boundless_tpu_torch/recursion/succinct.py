@@ -56,11 +56,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import time
 
 import numpy as np
-import torch
 
 from ..air import rv32im
 from ..core import field as F
 from ..prover import stark
+from ..utils import profiling
 from ..zkvm import coproc as zco
 from ..zkvm import paging
 from ..zkvm.prove import _device
@@ -657,12 +657,6 @@ class SuccinctError(Exception):
 PROGRAM_KINDS = ("lift", "lift_i", "join", "resolve")
 
 
-def _sync(device: torch.device):
-    """Wait for the card, so that host clocks time its work."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class SuccinctSystem:
     """Builds and runs the recursion program set for one parameterization,
     on `device` (the card unless the caller asks for the CPU): the ROMs,
@@ -670,8 +664,9 @@ class SuccinctSystem:
 
     One RecursionAir prover serves every program: only the ROM (the ctrl
     trace, a prover argument) differs. `seconds` holds the host clock of
-    the set-up stages (`program_build`, `control_ids`) and of the stages
-    of the latest proof (`witness`, `native_eval`, `prove`).
+    the set-up stages (`program_build`, `control_ids`). Each proof runs
+    under the tracer's span `rec.<kind>` (`utils/profiling.py`) with
+    children `rec.witness`, `rec.native_eval` and `rec.prove`.
 
     `coproc`: optional `coproc_succinct.CoprocParams` — when given, the
     keccak coproc lattice is built (`coproc_sys`, on the same device) and
@@ -731,19 +726,18 @@ class SuccinctSystem:
         return tuple(list(claim.digest()) + list(self.allowed_root)
                      + [0] * 8)
 
+    def _span(self, name: str):
+        return profiling.span(name, sync=True, device=self.device)
+
     def _prove(self, kind: str, inputs, claim: claims.Claim) -> RecReceipt:
         pub_vals = self._pub_vals(claim)
-        prog = self.progs[kind]
-        t0 = time.perf_counter()
-        data = rair.data_trace(prog, inputs, pub_vals, self.device)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        proof = stark.prove(rair.AIR, data, rair.pub_array(
-            pub_vals, self.device), self.params.rec_po2, self.params.rec_ps,
-            self.roms[kind])
-        _sync(self.device)
-        self.seconds["native_eval"] = t1 - t0
-        self.seconds["prove"] = time.perf_counter() - t1
+        with self._span("rec.native_eval"):
+            data = rair.data_trace(self.progs[kind], inputs, pub_vals,
+                                   self.device)
+        with self._span("rec.prove"):
+            proof = stark.prove(rair.AIR, data, rair.pub_array(
+                pub_vals, self.device), self.params.rec_po2,
+                self.params.rec_ps, self.roms[kind])
         return RecReceipt(kind=kind, proof=proof, claim=claim,
                           pub_vals=pub_vals, po2=self.params.rec_po2)
 
@@ -761,37 +755,36 @@ class SuccinctSystem:
         """
         if pre_chains is None:
             pre_chains = {t: claims.ZERO_CHAIN for t in claims.CHAIN_TAGS}
-        t0 = time.perf_counter()
-        pre_root, post_root, _ = paging_walk(seg_receipt.pub, pre_mem or {})
-        claim = claims.Claim.of_segment(
-            seg_receipt.image_id, seg_receipt.pub, pre_chains,
-            pre_mem_root=pre_root, post_mem_root=post_root,
-            seg_index=seg_index)
-        variant = seg_receipt.variant
-        wit = lift_witness(seg_receipt.pub, seg_receipt.proof,
-                           self.params.seg_po2, self.params.seg_ps,
-                           pre_chains, pre_mem or {}, variant, seg_index)
-        witness_s = time.perf_counter() - t0
-        r = self._prove("lift" if variant == "rv32im" else "lift_i", wit,
-                        claim)
-        self.seconds["witness"] = witness_s
-        return r
+        with self._span("rec.lift"):
+            with profiling.span("rec.witness"):
+                pre_root, post_root, _ = paging_walk(seg_receipt.pub,
+                                                     pre_mem or {})
+                claim = claims.Claim.of_segment(
+                    seg_receipt.image_id, seg_receipt.pub, pre_chains,
+                    pre_mem_root=pre_root, post_mem_root=post_root,
+                    seg_index=seg_index)
+                variant = seg_receipt.variant
+                wit = lift_witness(seg_receipt.pub, seg_receipt.proof,
+                                   self.params.seg_po2, self.params.seg_ps,
+                                   pre_chains, pre_mem or {}, variant,
+                                   seg_index)
+            return self._prove("lift" if variant == "rv32im" else "lift_i",
+                               wit, claim)
 
     def _kind_index(self, kind: str) -> int:
         return self.kinds.index(kind)
 
     def join(self, left: RecReceipt, right: RecReceipt) -> RecReceipt:
         """Pairwise join (reference join.rs:53)."""
-        t0 = time.perf_counter()
-        claim = left.claim.join(right.claim)
-        wit = (_child_witness(left, self._kind_index(left.kind),
-                              self.allowed_ids, self.params.rec_ps)
-               + _child_witness(right, self._kind_index(right.kind),
-                                self.allowed_ids, self.params.rec_ps))
-        witness_s = time.perf_counter() - t0
-        r = self._prove("join", wit, claim)
-        self.seconds["witness"] = witness_s
-        return r
+        with self._span("rec.join"):
+            with profiling.span("rec.witness"):
+                claim = left.claim.join(right.claim)
+                wit = (_child_witness(left, self._kind_index(left.kind),
+                                      self.allowed_ids, self.params.rec_ps)
+                       + _child_witness(right, self._kind_index(right.kind),
+                                        self.allowed_ids,
+                                        self.params.rec_ps))
+            return self._prove("join", wit, claim)
 
     def resolve(self, conditional: RecReceipt, assumption: RecReceipt,
                 prev_chain: Sequence[int]) -> RecReceipt:
@@ -799,20 +792,19 @@ class SuccinctSystem:
         is the conditional claim's assumptions chain *before* the
         discharged digest was folded (host-tracked; see
         claims.assumption_chain_prefixes)."""
-        t0 = time.perf_counter()
-        claim = conditional.claim.resolve(assumption.claim.digest(),
-                                          prev_chain)
-        wit = (_child_witness(conditional,
-                              self._kind_index(conditional.kind),
-                              self.allowed_ids, self.params.rec_ps)
-               + _child_witness(assumption,
-                                self._kind_index(assumption.kind),
-                                self.allowed_ids, self.params.rec_ps))
-        wit += programs._pack4([int(x) for x in prev_chain])
-        witness_s = time.perf_counter() - t0
-        r = self._prove("resolve", wit, claim)
-        self.seconds["witness"] = witness_s
-        return r
+        with self._span("rec.resolve"):
+            with profiling.span("rec.witness"):
+                claim = conditional.claim.resolve(assumption.claim.digest(),
+                                                  prev_chain)
+                wit = (_child_witness(conditional,
+                                      self._kind_index(conditional.kind),
+                                      self.allowed_ids, self.params.rec_ps)
+                       + _child_witness(assumption,
+                                        self._kind_index(assumption.kind),
+                                        self.allowed_ids,
+                                        self.params.rec_ps))
+                wit += programs._pack4([int(x) for x in prev_chain])
+            return self._prove("resolve", wit, claim)
 
     def resolve_coproc(self, conditional: RecReceipt,
                        union_receipt) -> RecReceipt:
@@ -822,16 +814,15 @@ class SuccinctSystem:
         lift_keccak or union receipt)."""
         if self.coproc_sys is None:
             raise SuccinctError("system built without coproc params")
-        t0 = time.perf_counter()
-        claim = conditional.claim.discharge_coproc(union_receipt.claim)
-        wit = _child_witness(conditional,
-                             self._kind_index(conditional.kind),
-                             self.allowed_ids, self.params.rec_ps)
-        wit += self.coproc_sys.child_witness(union_receipt)
-        witness_s = time.perf_counter() - t0
-        r = self._prove("resolve_coproc", wit, claim)
-        self.seconds["witness"] = witness_s
-        return r
+        with self._span("rec.resolve_coproc"):
+            with profiling.span("rec.witness"):
+                claim = conditional.claim.discharge_coproc(
+                    union_receipt.claim)
+                wit = _child_witness(conditional,
+                                     self._kind_index(conditional.kind),
+                                     self.allowed_ids, self.params.rec_ps)
+                wit += self.coproc_sys.child_witness(union_receipt)
+            return self._prove("resolve_coproc", wit, claim)
 
     # -- verification ---------------------------------------------------
 

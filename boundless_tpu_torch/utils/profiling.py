@@ -1,85 +1,124 @@
-"""Per-kernel timing + roofline accounting.
+"""The port's tracer: spans at its layer boundaries, on the clock of the
+profiler's device events.
 
-The port's counterpart of `boundless_tpu/utils/profiling.py`: `profile_fn`
-times a function (one warm-up, then `reps` runs, the card synchronized
-before each clock read); `roofline` reports the achieved fraction of the
-card's peaks for a declared operation/byte budget. The peaks are the
-H100's: HBM3 at 3.35 TB/s (NVIDIA data sheet, H100 SXM), and the 32-bit
-integer issue rate read from the card itself (SMs x 128 instructions per
-clock x the maximum SM clock, as `chip_smoke.py` takes it).
+`span(name, sync=False, device=None, **attrs)` is a context manager. While
+tracing is off (the default) it returns one shared null context after a
+flag check: nothing is recorded and nothing waits for the card. After
+`enable()`, each span records its name, its own id, its parent's id and
+its root's id (spans nest per thread; a span opened where none is open is
+a root, the request: a segment proof, a cluster task with its `job` and
+`task`), the thread, its attributes, and `time.time_ns()` at open and
+close. That is the host clock `torch.profiler` gives the card's events,
+so spans and the device trace share one timeline. `sync=True` waits for
+`device` (the current CUDA device when None, if CUDA is in use) before the
+span closes, and only while tracing is on.
+
+The newest `MAX_RECORDS` closed spans are kept in memory (`records()`,
+`export_chrome(path)` as Chrome trace events), and each closed span adds
+its seconds to `cluster/metrics.REGISTRY.histogram("span_seconds",
+span=name)`: the registry the cluster's `/metrics` exposes.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import functools
-import subprocess
+import collections
+import contextlib
+import itertools
+import json
+import os
+import threading
 import time
 
 import torch
 
-H100_HBM3_GBPS = 3350.0  # H100 SXM HBM3 (NVIDIA data sheet)
-# 32-bit integer instructions one sm_90 SM issues per clock: four
-# schedulers, one warp instruction each (H100 whitepaper)
-ISSUE_PER_CLOCK_PER_SM = 128
+from ..cluster import metrics as M
+
+MAX_RECORDS = 1 << 16
+
+_NULL = contextlib.nullcontext()
+_on = False
+_records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
+_ids = itertools.count(1)
+_local = threading.local()
 
 
-@functools.lru_cache(maxsize=None)
-def int32_peak_tops(device: int = 0) -> float:
-    """The card's 32-bit integer issue rate in tera-operations per second:
-    SMs x ISSUE_PER_CLOCK_PER_SM x the maximum SM clock (nvidia-smi)."""
-    mhz = subprocess.run(
-        ["nvidia-smi", f"--id={device}", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * ISSUE_PER_CLOCK_PER_SM * float(mhz) * 1e6 / 1e12
+def enable():
+    """Record every span opened from now on, on every thread."""
+    global _on
+    _on = True
 
 
-@dataclasses.dataclass
-class KernelProfile:
-    name: str
-    seconds: float
-    flops: float = 0.0  # operations of the declared budget
-    bytes_accessed: float = 0.0
-
-    @property
-    def achieved_tflops(self):
-        return self.flops / self.seconds / 1e12 if self.seconds else 0.0
-
-    @property
-    def achieved_gbps(self):
-        return self.bytes_accessed / self.seconds / 1e9 if self.seconds else 0.0
-
-    def roofline(self, peak_tflops=None, hbm_gbps=H100_HBM3_GBPS) -> dict:
-        """Fractions of the peaks; `peak_tflops` defaults to the card's
-        int32 issue rate (`int32_peak_tops`)."""
-        peak = int32_peak_tops() if peak_tflops is None else peak_tflops
-        return dict(
-            name=self.name,
-            seconds=self.seconds,
-            achieved_tflops=self.achieved_tflops,
-            compute_fraction=self.achieved_tflops / peak,
-            achieved_gbps=self.achieved_gbps,
-            bandwidth_fraction=self.achieved_gbps / hbm_gbps,
-            bound=("bandwidth" if self.achieved_gbps / hbm_gbps
-                   > self.achieved_tflops / peak else "compute"),
-        )
+def disable():
+    global _on
+    _on = False
 
 
-def _sync():
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+def span(name: str, sync: bool = False, device=None, **attrs):
+    """A span named `name` around the `with` block (see the module)."""
+    if not _on:
+        return _NULL
+    return _Span(name, sync, device, attrs)
 
 
-def profile_fn(name, fn, *args, reps=5, flops=0.0, bytes_accessed=0.0,
-               **kwargs) -> KernelProfile:
-    """Time a function: one warmup, then `reps` timed runs."""
-    fn(*args, **kwargs)
-    _sync()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn(*args, **kwargs)
-    _sync()
-    return KernelProfile(name=name, seconds=(time.perf_counter() - t0) / reps,
-                         flops=flops, bytes_accessed=bytes_accessed)
+def records() -> list:
+    """The kept spans, oldest first: dicts of `name`, `id`, `parent`,
+    `root`, `thread`, `t0_ns`, `t1_ns` and `attrs`."""
+    return list(_records)
+
+
+def export_chrome(path: str):
+    """The kept spans as Chrome trace events (`ph` "X", microseconds on
+    the `time.time_ns()` clock), one JSON object at `path`."""
+    pid = os.getpid()
+    events = [dict(name=r["name"], ph="X", ts=r["t0_ns"] / 1e3,
+                   dur=(r["t1_ns"] - r["t0_ns"]) / 1e3, pid=pid,
+                   tid=r["thread"],
+                   args=dict(r["attrs"], id=r["id"], parent=r["parent"],
+                             root=r["root"]))
+              for r in records()]
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events}, f, default=str)
+
+
+def _synchronize(device):
+    if device is None:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    elif torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _Span:
+    __slots__ = ("name", "sync", "device", "attrs", "id", "parent", "root",
+                 "t0")
+
+    def __init__(self, name, sync, device, attrs):
+        self.name, self.sync, self.device, self.attrs = (name, sync, device,
+                                                         attrs)
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.id = next(_ids)
+        outer = stack[-1] if stack else None
+        self.parent = outer.id if outer else None
+        self.root = outer.root if outer else self.id
+        stack.append(self)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        try:
+            if self.sync and exc_type is None:
+                _synchronize(self.device)
+        finally:
+            t1 = time.time_ns()
+            _local.stack.pop()
+            _records.append(dict(
+                name=self.name, id=self.id, parent=self.parent,
+                root=self.root, thread=threading.get_ident(), t0_ns=self.t0,
+                t1_ns=t1, attrs=self.attrs))
+            M.REGISTRY.histogram(M.SPAN_SECONDS, span=self.name).observe(
+                (t1 - self.t0) / 1e9)
+        return False

@@ -25,6 +25,7 @@ import torch
 from ..air.rv32im import Rv32imAir
 from ..core import field as F
 from ..prover import stark
+from ..utils import profiling
 from . import witness
 from .executor import GuestFault, MemoryImage, Segment
 
@@ -133,11 +134,13 @@ def prove_segment(image: MemoryImage, seg: Segment,
     unless the caller asks for the CPU)."""
     device = _device(device)
     variant = air_variant_of(image, seg)
-    w = _gen_witness(image, seg, rng)
-    data = F.fp(witness.data_for_variant(w.data, variant), device)
-    ctrl, image_id = _image_ctrl(image, seg.po2, ps, device)
-    pub = witness.to_public_values(w.pub, device)
-    proof = stark.prove(_AIRS[variant], data, pub, seg.po2, ps, ctrl)
+    with profiling.span("prove_segment", po2=seg.po2):
+        with profiling.span("zkvm.witness"):
+            w = _gen_witness(image, seg, rng)
+        data = F.upload(witness.data_for_variant(w.data, variant), device)
+        ctrl, image_id = _image_ctrl(image, seg.po2, ps, device)
+        pub = witness.to_public_values(w.pub, device)
+        proof = stark.prove(_AIRS[variant], data, pub, seg.po2, ps, ctrl)
     return SegmentReceipt(proof=proof, pub=w.pub, image_id=image_id,
                           po2=seg.po2, variant=variant)
 

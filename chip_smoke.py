@@ -1994,6 +1994,35 @@ class TimeCalls:
         setattr(self.module, self.name, self._orig)
 
 
+class Stages:
+    """Host seconds of the recursion proofs made while active, from the
+    port's tracer (`utils/profiling.py`, on while active): `seconds` maps
+    `witness`, `native_eval` and `prove` to the sums of the spans
+    `rec.witness`, `rec.native_eval` and `rec.prove`, and `proof` to the
+    sum of the proofs' own spans (`rec.lift`, `rec.join`, `rec.shrink`,
+    ...). The stages' spans wait for the card before they close."""
+
+    STAGES = ("witness", "native_eval", "prove")
+
+    def __enter__(self):
+        from boundless_tpu_torch.utils import profiling
+
+        self._tracer = profiling
+        profiling.enable()
+        self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self._tracer.disable()
+        self.seconds = dict.fromkeys(self.STAGES + ("proof",), 0.0)
+        for r in self._tracer.records():
+            if r["t0_ns"] < self._t0 or not r["name"].startswith("rec."):
+                continue
+            stage = r["name"][len("rec."):]
+            key = stage if stage in self.STAGES else "proof"
+            self.seconds[key] += (r["t1_ns"] - r["t0_ns"]) / 1e9
+
+
 def phase_recursion_kernels(dev, sm_clocks_per_s, lat):
     """The sponge and the NTT at the recursion proofs' largest shapes."""
     from boundless_tpu_torch.core import ntt as NTT
@@ -2121,7 +2150,8 @@ def phase_recursion(dev):
     def recursion_proof(what, make):
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        with TimeCalls(stark, "_quotient_coeffs") as quotient:
+        with TimeCalls(stark, "_quotient_coeffs") as quotient, \
+                Stages() as stages:
             t0 = time.perf_counter()
             r = make()
             torch.cuda.synchronize()
@@ -2139,8 +2169,9 @@ def phase_recursion(dev):
             raise AssertionError(f"{what}: the proof did not run on the card")
         for k, v in launches.items():
             rec_launches[k] += v
-        sec = system.seconds
+        sec = stages.seconds
         say("recursion", stage=what, wall_s=f"{wall:.3f}",
+            proof_s=f"{sec['proof']:.3f}",
             witness_s=f"{sec['witness']:.3f}",
             native_eval_s=f"{sec['native_eval']:.3f}",
             prove_s=f"{sec['prove']:.3f}",
@@ -2259,14 +2290,16 @@ def phase_coproc(dev, cons_check):
         rec_ps=q50, variants=("rv32im",))
     coproc_launches = {k: 0 for k in counts()}
 
-    def counted(what, make, stages=None, cons_kernel: bool = False):
+    def counted(what, make, stages: bool = False,
+                cons_kernel: bool = False):
         """Run one proof with the launch counts zeroed just before and read
         right after: sponge and NTT launched, the constraint kernel
         launched iff `cons_kernel` (the rv32im segment proof). `stages`:
-        the recursion system whose `seconds` time the proof's stages."""
+        a recursion proof, whose stages the tracer times."""
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        with TimeCalls(stark, "_quotient_coeffs") as quotient:
+        with TimeCalls(stark, "_quotient_coeffs") as quotient, \
+                Stages() as timed:
             t0 = time.perf_counter()
             r = make()
             torch.cuda.synchronize()
@@ -2284,9 +2317,9 @@ def phase_coproc(dev, cons_check):
                                  f"constraint-kernel launches")
         if r.proof.data_root.device != dev:
             raise AssertionError(f"{what}: the proof did not run on the card")
-        sec = {} if stages is None else {
-            f"{k}_s": f"{stages.seconds[k]:.3f}"
-            for k in ("witness", "native_eval", "prove")}
+        sec = {} if not stages else {
+            f"{k}_s": f"{timed.seconds[k]:.3f}"
+            for k in ("proof",) + Stages.STAGES}
         say("coproc", stage=what, wall_s=f"{wall:.3f}", **sec,
             quotient_s=f"{sum(quotient.seconds):.3f}",
             max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -2409,10 +2442,10 @@ def phase_coproc(dev, cons_check):
         single_max_memory_allocated=single_peak[str(dev)], moved_bytes=moved,
         chained_sponge_launches=len(chained),
         launches=json.dumps(tp_launches).replace(" ", ""))
-    klift = counted("lift_keccak guest", lambda: csys.lift(kec), csys)
+    klift = counted("lift_keccak guest", lambda: csys.lift(kec), True)
     chains = succinct.segment_pre_chains(ex, res)
     lift = counted("lift", lambda: system.lift(
-        seg_receipt, chains[seg.index], seg.pre_mem, seg.index), system)
+        seg_receipt, chains[seg.index], seg.pre_mem, seg.index), True)
     words = [int(w) for w in ex.journal_words]
     mem_root = paging.image_root(image)
     try:
@@ -2421,7 +2454,7 @@ def phase_coproc(dev, cons_check):
     except succinct.SuccinctError:
         pass
     resolved = counted("resolve_coproc", lambda: system.resolve_coproc(
-        lift, klift), system)
+        lift, klift), True)
     session = succinct.finalize_session(resolved, words, image.entry,
                                         mem_root)
     t0 = time.perf_counter()
@@ -2461,9 +2494,9 @@ def phase_coproc(dev, cons_check):
                     coproc.prove_keccak(s, KEC_PO2, q50, device=dev))
         lifts.append(counted(f"lift_keccak batch{i}",
                              lambda r=r, c=chain, n=count: csys.lift(r, c, n),
-                             csys))
+                             True))
         chain, count = lifts[-1].claim.post_chain, count + len(states)
-    united = counted("union", lambda: csys.union(*lifts), csys)
+    united = counted("union", lambda: csys.union(*lifts), True)
     span = (united.claim.pre_count, united.claim.post_count)
     if not csys.verify(united) or span != (0, sum(UNION_PERMS)):
         raise AssertionError(f"the union did not verify over 0 -> "
@@ -3565,10 +3598,11 @@ def phase_wrap(dev):
     p254 = identity.get_p254(system)
     t_p254 = time.perf_counter() - t0
     before = P254K.LAUNCHES  # the control ID's launches stay counted
-    receipt = wrap.compress(session, kind="groth16", system=system)
-    torch.cuda.synchronize()
+    with Stages() as shrink:
+        receipt = wrap.compress(session, kind="groth16", system=system)
+        torch.cuda.synchronize()
     shrink_launches = P254K.LAUNCHES - before
-    sec = dict(p254.seconds)
+    sec = dict(p254.seconds, **shrink.seconds)
     launches = all_counts()
     if launches["p254_sponge"] <= 0:
         raise AssertionError("identity_p254 launched no p254 sponge kernel")
@@ -3609,7 +3643,7 @@ def phase_wrap(dev):
         identity_po2=p254.po2,
         control_id=",".join(str(x) for x in p254.control_id))
     say("wrap", stage="identity_p254",
-        shrink_s=f"{sec['witness'] + sec['native_eval'] + sec['prove']:.3f}",
+        shrink_s=f"{sec['proof']:.3f}",
         witness_s=f"{sec['witness']:.3f}",
         native_eval_s=f"{sec['native_eval']:.3f}",
         prove_s=f"{sec['prove']:.3f}", verify_s=f"{sec['verify']:.3f}",

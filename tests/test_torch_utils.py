@@ -2,7 +2,7 @@
 every case of JAX `tests/test_utils.py` run on both the JAX package and
 the port (`boundless_tpu_torch/utils/config.py`,
 `utils/service_runner.py`, `cluster/executor_service.py`), plus the
-config's file bytes and the port's profiler on the CPU."""
+config's file bytes (the port's tracer: `tests/test_torch_profiling.py`)."""
 
 import importlib
 import os
@@ -142,25 +142,3 @@ def test_executor_service_registry(pkg):
     assert res.journal == guests.words([99])
     with pytest.raises(KeyError):
         reg.get("sp1")
-
-
-def test_profile_fn_on_the_cpu():
-    from boundless_tpu_torch.utils import profiling
-
-    calls = []
-    prof = profiling.profile_fn("noop", lambda x: calls.append(x), 7,
-                                reps=3, flops=2e12, bytes_accessed=4e9)
-    assert calls == [7] * 4  # one warm-up and three timed runs
-    assert prof.seconds > 0
-    roof = prof.roofline(peak_tflops=100.0)
-    assert set(roof) == {"name", "seconds", "achieved_tflops",
-                         "compute_fraction", "achieved_gbps",
-                         "bandwidth_fraction", "bound"}
-    assert roof["bandwidth_fraction"] == pytest.approx(
-        prof.achieved_gbps / profiling.H100_HBM3_GBPS)
-    assert roof["compute_fraction"] == pytest.approx(
-        prof.achieved_tflops / 100.0)
-    slow = profiling.KernelProfile("k", 1.0, flops=1e12,
-                                   bytes_accessed=3.35e12)
-    assert slow.roofline(peak_tflops=100.0)["bound"] == "bandwidth"
-    assert profiling.KernelProfile("k", 0.0).achieved_tflops == 0.0
