@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import upload as UK
 from ..utils import profiling
 
 P = 2013265921  # 15 * 2**27 + 1
@@ -104,9 +105,16 @@ def fp(x, device="cpu"):
 
 def upload(words, device):
     """A trace handed from the host to `device`: canonical words ->
-    Montgomery int32 there, the conversion and the copy under one
-    synchronised `upload` span of the tracer."""
-    with profiling.span("upload", sync=True, device=device):
+    Montgomery int32 there, the copy and the conversion under one
+    synchronised `upload` span of the tracer. On a CUDA device the int64
+    rows are copied as they lie and converted by a kernel on the card
+    (`kernels/upload.py`, span attr `route="card"`); elsewhere `fp` converts
+    them on the host (`route="host"`). Both give the same words."""
+    on_card = torch.device(device).type == "cuda"
+    with profiling.span("upload", sync=True, device=device,
+                        route="card" if on_card else "host"):
+        if on_card:
+            return UK.upload(words, device)
         return fp(words, device)
 
 

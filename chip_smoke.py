@@ -12,7 +12,8 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               (csrc/poseidon2.cu), the NTT sub-transform (csrc/ntt.cu), the
               p254 sponge (csrc/poseidon254.cu), the MSM (csrc/msm.cu), the
               exact weighted sum (csrc/bbmm.cu; and the first design it
-              is timed against, tools/bbmm_rows.cu) and
+              is timed against, tools/bbmm_rows.cu), the trace upload
+              (csrc/upload.cu) and
               the generated fused constraint kernels of both AIR variants
               (kernels/cons.py), plus the probes and the spin kernel of
               device_ms; prints nvcc
@@ -71,6 +72,13 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               int8 limb product through torch._int_mm for scale (never
               on the path); at the block shapes the kernel beside the
               parent's route (torch.cat, then the first design).
+              Trace upload ([upload], csrc/upload.cu; phase_upload): at
+              each of the main path's shapes (the po2-20 witness's 392 of
+              576 int64 columns read in place, a rec_po2-20 data trace's
+              contiguous 64, the po2-17 witness) field.upload word for
+              word against field.fp, one launch a staging block; its
+              walls, the kernel's device time beside its bytes bound, the
+              host route's wall. In no benchmark cell.
   5. golden   the port's po2-8 TEST_PS proofs on the card equal the JAX
               reference proofs stored in tests/data/torch_golden_po2_8.npz;
               every kernel launched in them; the fused constraint kernel's
@@ -554,11 +562,13 @@ def phase_build():
     from boundless_tpu_torch.kernels import ntt as NK
     from boundless_tpu_torch.kernels import poseidon2 as P2K
     from boundless_tpu_torch.kernels import poseidon254 as P254K
+    from boundless_tpu_torch.kernels import upload as UK
     from boundless_tpu_torch.zkvm import prove
 
     jobs = {"bt_poseidon2": P2K._lib, "bt_ntt": NK._lib,
             "bt_poseidon254": P254K._lib, "bt_msm": MK._lib,
             "bt_bbmm": BK._lib, "bt_bbmm_rows": bbmm_variants().load_rows,
+            "bt_upload": UK._lib,
             "bt_issue_probe": probe_lib, "bt_spin": spin_lib,
             "bt_bn_probe": bn_probe_lib}
     for variant, air in prove._AIRS.items():
@@ -612,7 +622,8 @@ def phase_build():
         say("build", library="bt_poseidon2", registers_spill_bytes=",".join(
             f"{lanes.get(k, 'tree_top')}:{regs}/{spill}"
             for _, k, spill, regs in funcs))
-    for name in ("bt_poseidon254", "bt_msm", "bt_bbmm", "bt_bbmm_rows"):
+    for name in ("bt_poseidon254", "bt_msm", "bt_bbmm", "bt_bbmm_rows",
+                 "bt_upload"):
         if name in build.PTXAS_LOG:
             say("build", library=name, registers_spill_stack_bytes=
                 ptxas_summary(build.PTXAS_LOG[name]))
@@ -1427,6 +1438,101 @@ def phase_kernel_bbmm(dev, sm_clocks_per_s):
     return stats, B.PLAIN_ON_CUDA
 
 
+# The trace upload's shapes on the main path: rows, the host's row pitch,
+# the columns uploaded
+UPLOAD_SHAPES = ((1 << 20, 576, 392),  # the po2-20 witness's rv32i columns
+                 (1 << 20, 64, 64),  # a rec_po2-20 data trace, contiguous
+                 (1 << 17, 576, 392))  # the po2-17 segment's witness
+UPLOAD_TURNS = 3  # walls of the port's upload at each shape
+
+
+def upload_kernel_ms(fn) -> tuple:
+    """(device ms of the `upload_kernel` launches, of the host-to-device
+    copies, launches) in one call of `fn`, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = copy = 0
+    launches = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if "upload_kernel" in e.name():
+            kern += e.duration_ns()
+            launches += 1
+        elif "HtoD" in e.name():
+            copy += e.duration_ns()
+    return kern / 1e6, copy / 1e6, launches
+
+
+def phase_upload(dev):
+    """The trace upload at each of the main path's shapes (UPLOAD_SHAPES:
+    the po2-20 witness's 392 of 576 int64 columns read in place, a
+    recursion data trace's contiguous 64, the po2-17 witness): the port's
+    route (`field.upload` -> csrc/upload.cu) word for word against
+    `field.fp`, one launch a staging block; UPLOAD_TURNS walls of it; the
+    kernel's device time (torch.profiler) beside its bytes bound (int64
+    read, int32 written, at HBM_BYTES_PER_S); the host route's wall (`fp`:
+    numpy's conversion, then a pageable copy); the staging's blocks and
+    bytes. One line a shape. Runs in no benchmark cell."""
+    from boundless_tpu_torch.core import field as F
+    from boundless_tpu_torch.kernels import upload as UK
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    stats = None
+    for k, (rows, pitch, cols) in enumerate(UPLOAD_SHAPES):
+        rng = np.random.default_rng(SEED + 18 + k)
+        t0 = time.perf_counter()
+        data = rng.integers(0, 1 << 31, size=(rows, pitch), dtype=np.int64)
+        data[0, :4] = [-1, -F.P, np.iinfo(np.int64).min,
+                       np.iinfo(np.int64).max]
+        words = data[:, :cols]
+        gen_s = time.perf_counter() - t0
+        want, host_s = walled(lambda: F.fp(words, dev))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = UK.LAUNCHES
+        got, first_s = walled(lambda: F.upload(words, dev))
+        staged = torch.cuda.max_memory_allocated() - base - got.numel() * 4
+        launches = UK.LAUNCHES - before
+        n = UK.block_rows(cols)
+        if launches != -(-rows // n) or not torch.equal(got, want):
+            raise AssertionError(f"[upload] at {rows} x {cols} of {pitch} "
+                                 f"the card's words differ from fp's or "
+                                 f"{launches} launches")
+        del got, want
+        walls = [walled(lambda: F.upload(words, dev))[1]
+                 for _ in range(UPLOAD_TURNS)]
+        kern_ms, copy_ms, kern_launches = upload_kernel_ms(
+            lambda: F.upload(words, dev))
+        read_b, write_b = rows * cols * 8, rows * cols * 4
+        bound = (read_b + write_b) / HBM_BYTES_PER_S * 1e3
+        say("upload", rows=rows, pitch=pitch, cols=cols, tolerance=0,
+            equal="yes", block_rows=n, launches=launches,
+            staging_bytes=staged, generate_s=f"{gen_s:.3f}",
+            host_route_s=f"{host_s:.4f}", first_call_s=f"{first_s:.4f}",
+            port_s=",".join(f"{x:.4f}" for x in walls),
+            copy_bytes=read_b, kernel_ms=f"{kern_ms:.4f}",
+            kernel_launches_profiled=kern_launches, bound_ms=f"{bound:.4f}",
+            bound_by="bytes", kernel_over_bound=f"{kern_ms / bound:.2f}",
+            htod_device_ms=f"{copy_ms:.4f}")
+        if stats is None:  # the witness's shape stands for the kernel
+            stats = {"max_abs_err": 0, "kernel_ms": round(kern_ms, 4),
+                     "bound_ms": round(bound, 4)}
+        del data, words
+    return stats
+
+
 class RecordBbmm:
     """Records (M, K, W) and the column-block table of every weighted-sum
     launch while active into BBMM_SEEN[path] and BBMM_TABLES_SEEN[path]."""
@@ -1587,9 +1693,11 @@ def counts():
     from boundless_tpu_torch.kernels import cons as CK
     from boundless_tpu_torch.kernels import ntt as NK
     from boundless_tpu_torch.kernels import poseidon2 as P2K
+    from boundless_tpu_torch.kernels import upload as UK
 
     return {"poseidon2_sponge": P2K.LAUNCHES, "ntt_sub_transform": NK.LAUNCHES,
-            "cons_eval": CK.LAUNCHES, "bb_weighted_sum": BK.LAUNCHES}
+            "cons_eval": CK.LAUNCHES, "bb_weighted_sum": BK.LAUNCHES,
+            "trace_upload": UK.LAUNCHES}
 
 
 def all_counts():
@@ -1608,9 +1716,10 @@ def zero_counts():
     from boundless_tpu_torch.kernels import ntt as NK
     from boundless_tpu_torch.kernels import poseidon2 as P2K
     from boundless_tpu_torch.kernels import poseidon254 as P254K
+    from boundless_tpu_torch.kernels import upload as UK
 
     P2K.LAUNCHES = NK.LAUNCHES = CK.LAUNCHES = BK.LAUNCHES = 0
-    P254K.LAUNCHES = MK.LAUNCHES = 0
+    P254K.LAUNCHES = MK.LAUNCHES = UK.LAUNCHES = 0
     for table in (P2K.LAUNCHES_BY_LAYOUT, P254K.LAUNCHES_BY_LAYOUT):
         for layout in table:
             table[layout] = 0
@@ -1821,6 +1930,7 @@ def phase_golden(dev, cons_check):
             say("golden", variant=variant, po2=8, arrays=len(gold),
                 equal="bit-for-bit", prove_s=f"{secs:.3f}")
     launched = counts()
+    del launched["trace_upload"]  # the golden traces go up through fp
     if min(launched.values()) <= 0:
         raise AssertionError(f"a kernel was not launched in the golden "
                              f"proofs: {launched}")
@@ -4069,6 +4179,8 @@ KERNELS = (
      "boundless_tpu/groth16/msm_tpu.py:237"),
     ("bb_weighted_sum", "boundless_tpu_torch/csrc/bbmm.cu",
      "boundless_tpu/core/bbmm.py:108"),
+    ("trace_upload", "boundless_tpu_torch/csrc/upload.cu",
+     "none: the host's boundless_tpu/core/field.py mont_np"),
 )
 
 
@@ -4093,6 +4205,7 @@ def main():
              "ntt_sub_transform": phase_kernel_ntt(dev, sm_clocks_per_s)}
     stats["bb_weighted_sum"], bbmm_plain_checks = phase_kernel_bbmm(
         dev, sm_clocks_per_s)
+    stats["trace_upload"] = timed_phase("upload", lambda: phase_upload(dev))
     cons_check = Checker()
     phase_golden(dev, cons_check)
     launches, stats["cons_eval"], main_witness = phase_main(

@@ -56,10 +56,14 @@ inline thread_local EmuDim threadIdx, blockIdx, blockDim, gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+typedef void* cudaEvent_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
-  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaStreamNonBlocking = 1,
+  cudaEventDisableTiming = 2,
+  cudaMemcpyHostToDevice = 1
 };
 
 struct EmuWarp {
@@ -123,6 +127,42 @@ cudaError_t cudaFuncSetAttribute(F, int, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// Streams and events: a launch or a copy runs to its end when it is called,
+// so every order a stream or an event would keep is kept. A 2-D copy is a
+// memcpy a row on host memory, counted with its bytes (emu_copies).
+inline long long emu_copy_count = 0, emu_copy_bytes = 0;
+extern "C" void emu_copies(long long* out) {
+  out[0] = emu_copy_count;
+  out[1] = emu_copy_bytes;
+}
+inline cudaError_t cudaStreamCreateWithFlags(cudaStream_t* s, unsigned) {
+  *s = (cudaStream_t)1;
+  return cudaSuccess;
+}
+inline cudaError_t cudaStreamDestroy(cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaStreamSynchronize(cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaEventCreateWithFlags(cudaEvent_t* e, unsigned) {
+  *e = (cudaEvent_t)1;
+  return cudaSuccess;
+}
+inline cudaError_t cudaEventDestroy(cudaEvent_t) { return cudaSuccess; }
+inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaStreamWaitEvent(cudaStream_t, cudaEvent_t, unsigned) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemcpy2DAsync(void* dst, size_t dpitch,
+                                     const void* src, size_t spitch,
+                                     size_t width, size_t height, int,
+                                     cudaStream_t) {
+  for (size_t r = 0; r < height; ++r)
+    memcpy((char*)dst + r * dpitch, (const char*)src + r * spitch, width);
+  ++emu_copy_count;
+  emu_copy_bytes += (long long)(width * height);
+  return cudaSuccess;
+}
 template <class F>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
                                                           size_t) {
