@@ -2,7 +2,8 @@
 
 The reference works out again, from the program words and the inputs the
 benchmark made, everything a receipt claims: it executes the program
-(`rv32i.py`), builds the program's image table and commits it
+(`rv32i.py`: plain RV32I, or RV32IM where the configuration's `variant`
+is "rv32im"), builds the program's image table and commits it
 (`image.py`, `stark.control_root_of`: the image id), and derives each
 segment's public values or the session's span claim. It then holds the
 port's receipts to that:
@@ -249,7 +250,8 @@ def judge(config: dict, outputs: list, device) -> dict:
         def log(msg, index=index):
             print(f"reference: job {index}: {msg}", file=sys.stderr)
 
-        run = rv32i.execute(words, entry, got["inputs"], segment_limit(po2))
+        run = rv32i.execute(words, entry, got["inputs"], segment_limit(po2),
+                            m_ext=config["variant"] == "rv32im")
         if got["kind"] == "segments":
             w, r = judge_segments(config, got, run, image_words, device, log)
         else:

@@ -1,4 +1,5 @@
-"""A plain RV32I interpreter: the reference's own execution of a guest.
+"""A plain RV32I interpreter, with the M extension on request (RV32IM):
+the reference's own execution of a guest.
 
 It runs the program words the benchmark made, on the inputs the benchmark
 drew, and reports what a receipt claims: the cycles, the journal, the
@@ -6,7 +7,12 @@ exit code and, for each continuation segment, the machine state at its
 ends, its public io rows and the memory words it touched. It shares no
 code with the port's executor; its rules are the zkVM's (one cycle an
 instruction, one an ecall; a segment ends when its cycles reach the
-segment's limit or the guest halts).
+segment's limit or the guest halts). The eight RV32M instructions
+(`execute(..., m_ext=True)`) follow the RISC-V unprivileged ISA's "M"
+chapter, its table of special cases included: a division by zero gives
+a quotient of all ones and the dividend as the remainder; -2^31 / -1
+gives -2^31, remainder 0. Each takes one cycle, as every instruction
+does. Without `m_ext` an M instruction raises, as in plain RV32I.
 
 Ecalls (t0): 0 halt (exit code a0), 1 commit a0 to the journal, 2 read
 the next input word into a0, 3 log (no effect on the claim). Verify and
@@ -100,9 +106,35 @@ def _alu(f3: int, a: int, b: int, alt: bool) -> int:
     return a & b
 
 
+def _mext(f3: int, a: int, b: int) -> int:
+    """RV32M (funct7 0000001) on the unsigned words a = rs1, b = rs2."""
+    sa, sb = _sx(a, 32), _sx(b, 32)
+    if f3 == 0:  # MUL: the low word of the product
+        return (a * b) & M32
+    if f3 == 1:  # MULH: signed x signed, the high word
+        return ((sa * sb) >> 32) & M32
+    if f3 == 2:  # MULHSU: signed rs1 x unsigned rs2, the high word
+        return ((sa * b) >> 32) & M32
+    if f3 == 3:  # MULHU: unsigned x unsigned, the high word
+        return (a * b) >> 32
+    if f3 in (4, 6):  # DIV, REM: signed, the quotient rounded toward 0
+        if b == 0:
+            return M32 if f3 == 4 else a
+        q = abs(sa) // abs(sb)
+        if (sa < 0) != (sb < 0):
+            q = -q
+        # -2^31 / -1 gives 2^31 here, which wraps to -2^31 (remainder 0)
+        return q & M32 if f3 == 4 else (sa - q * sb) & M32
+    if b == 0:  # DIVU, REMU
+        return M32 if f3 == 5 else a
+    return a // b if f3 == 5 else a % b
+
+
 def execute(words: Dict[int, int], entry: int, inputs: List[int],
-            segment_limit: int, max_cycles: int = 1 << 32) -> Run:
-    """Run the program `words` (byte address -> u32) from `entry`."""
+            segment_limit: int, max_cycles: int = 1 << 32,
+            m_ext: bool = False) -> Run:
+    """Run the program `words` (byte address -> u32) from `entry`; with
+    `m_ext` the M extension's instructions run, else they raise."""
     mem = {a >> 2: w & M32 for a, w in words.items()}
     regs = [0] * 32
     pc = entry
@@ -166,8 +198,14 @@ def execute(words: Dict[int, int], entry: int, inputs: List[int],
                     val = _alu(f3, a, imm_i & M32, False)
             elif op == 0b0110011:  # OP
                 if f7 & 1:
-                    raise GuestError("the M extension is not in rv32i")
-                val = _alu(f3, a, b, bool((word >> 30) & 1))
+                    if not m_ext:
+                        raise GuestError("the M extension is not in rv32i")
+                    if f7 != 1:
+                        raise GuestError(f"illegal instruction {word:#010x} "
+                                         f"at {pc:#x}")
+                    val = _mext(f3, a, b)
+                else:
+                    val = _alu(f3, a, b, bool((word >> 30) & 1))
             elif op == 0b1110011:  # ECALL
                 code, a0 = regs[5], regs[10]
                 if code == 0:

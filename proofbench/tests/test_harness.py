@@ -13,8 +13,11 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from proofbench import harness, roofline, traffic
+from proofbench.reference import dsl
+from proofbench.reference.stark import ExtVal, VecVal
 
 ROOT = harness.ROOT
 BENCH = harness.load_benchmark()
@@ -85,6 +88,91 @@ def test_a_cell_added_as_files_loads_without_edits(tmp_path):
     assert mod.read(type("T", (), {"spans": {"prove_segment": [1, 2]}})) == 2
     jobs = traffic.jobs(cell.traffic, cell.config, 7)
     assert next(jobs).cycles < 0.5 * (1 << 19)
+    _an_rv32im_cell_added_as_files_is_judged(root, before)
+
+
+SMALL_PS = dict(queries=8, fri_min_degree=16, commit_expand=4)
+# an M-heavy guest: read n, run a mul/mulhu/divu/remu chain n times,
+# commit the chain's value, halt; 20 cycles and 9 an iteration
+CHAIN_SRC = """
+start:
+    li t0, 2
+    ecall
+    mv s2, a0
+    li s3, 0
+    li s4, 0x9e3779b9
+    li s5, 12345
+chain:
+    beq s3, s2, done
+    mul s5, s5, s4
+    mulhu t1, s5, s4
+    divu t3, s5, t1
+    remu t4, s5, t1
+    add s5, s5, t3
+    xor s5, s5, t4
+    addi s3, s3, 1
+    j chain
+done:
+    mv a0, s5
+    li t0, 1
+    ecall
+    li t0, 0
+    li a0, 0
+    ecall
+"""
+
+
+def _an_rv32im_cell_added_as_files_is_judged(root, before):
+    """An rv32im configuration and its cell, added as files to the
+    checkout `root`, judged on the CPU at po2 8 with 8 queries: the
+    port's receipt passes, one with a journal word changed fails, and
+    one proved under the configuration's control proof system fails."""
+    from boundless_tpu_torch.zkvm import asm
+
+    from proofbench.reference import check
+
+    pb = root / "proofbench"
+    words, _ = asm.assemble(CHAIN_SRC, base=0x1000)
+    cfg = dict(
+        name="chain-rv32im-seg8", path="segment", segment_po2=8,
+        variant="rv32im", proof_system=SMALL_PS, reduced={}, assumed={},
+        program=dict(name="chain", base=0x1000, entry=0x1000, words=words,
+                     cycles_per_iteration=9, cycles_fixed=20),
+        control=dict(proof_system=dict(SMALL_PS, commit_expand=2)))
+    (pb / "configs" / "chain-rv32im-seg8.json").write_text(json.dumps(cfg))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append(dict(bench["configs"][0], name=cfg["name"],
+                                 file="proofbench/configs/"
+                                      "chain-rv32im-seg8.json"))
+    bench["workloads"].append(dict(name="m8-chain", config=cfg["name"],
+                                   traffic="segments-half", chips=1,
+                                   why="a test"))
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert not [p for p, b in before.items()
+                if p.name != "BENCHMARK.json" and p.read_bytes() != b]
+    cell = harness.resolve("m8-chain", root=str(root))
+    job = next(traffic.jobs(cell.traffic, cell.config, 2 ** 33 + 19))
+    path = harness.path_module(cell.config, root=str(root)).Path
+    out = path.export(path(cell.config, "cpu").run_job(job))
+    assert [s["variant"] for s in out["segments"]] == ["rv32im"]
+    checks = check.judge(cell.config, [(0, out)], "cpu")
+    assert checks["claim_fields_wrong"]["value"] == 0
+    assert checks["proofs_rejected"]["value"] == 0
+    assert check.passes(checks)
+
+    journal = bytearray(out["journal"])
+    journal[0] ^= 1
+    checks = check.judge(cell.config, [(0, dict(out, journal=bytes(
+        journal)))], "cpu")
+    assert checks["claim_fields_wrong"]["value"] >= 1
+    assert not check.passes(checks)
+
+    control = path(cell.config, "cpu",
+                   proof_system=cell.config["control"]["proof_system"])
+    checks = check.judge(cell.config, [(0, path.export(
+        control.run_job(job)))], "cpu")
+    assert checks["proofs_rejected"]["value"] >= 1
+    assert not check.passes(checks)
 
 
 # every mix of `traffic/`, with the configuration it is sized against
@@ -183,6 +271,87 @@ def test_sponge_counts_equal_hand_counts():
     instr, nbytes = roofline.tree_work(8)
     assert instr == 7 * (perm + 16 * 2)
     assert nbytes == (8 + 7) * 8 * 4
+
+
+class _TinyAir(dsl.Air):
+    name, ctrl_cols, data_cols, accum_cols, globals_count = "tiny", 1, 3, 4, 1
+
+    def constraints(self, alg, now, nxt, globals_, pub):
+        x, y, z = now.data[0], now.data[1], now.data[2]
+        inv = alg.read_ext(now.accum, 0)
+        return [
+            alg.mul(x, y),  # 1 product
+            alg.sub(alg.mul(x, y), z),  # x * y shared: 1 sum
+            alg.mul(x, alg.one()),  # a product by 1: none
+            alg.add(nxt.data[0], alg.zero()),  # a sum with 0: none
+            alg.sub(x, x),  # none, and the same on every row
+            alg.mul(alg.const(3), alg.const(5)),  # literals: none, the same
+            alg.mul(alg.pubval(pub), alg.const(2)),  # a public: the same
+            alg.mul(alg.pubval(pub), x),  # 1 product
+            # 3 sums, 3 products
+            VecVal(alg.gmul(alg.B(x), alg.gsub(now.data.block(slice(0, 3)),
+                                               alg.gconst([1, 2, 3])))),
+            # an ext product by the mix challenge: 16 + 3 products, 12
+            # sums; less a lifted base value: 1 sum (the other three
+            # components less 0)
+            ExtVal(alg.esub(alg.emul(inv, globals_[0]), alg.lift(z))),
+        ]
+
+
+def test_cons_counts_equal_hand_counts_on_a_tiny_air():
+    assert roofline.EXT_MUL_PRODUCTS == 16 + 3
+    assert roofline.EXT_MUL_SUMS == 4 * 3
+    pub = torch.tensor(123456, dtype=torch.int32)
+    row = roofline.count_row(_TinyAir(), pub,
+                             torch.Generator().manual_seed(5))
+    assert row.products == 1 + 1 + 3 + 19
+    assert row.sums == 1 + 3 + 12 + 1
+    assert row.rows == 8 + 3 + 4
+    assert row.varying == row.rows - 3
+    assert row.cols == (1, 3, 4)
+
+
+def test_cons_counts_are_pinned_for_both_variants():
+    i, im = (roofline.cons_row_ops(v) for v in ("rv32i", "rv32im"))
+    assert i == (2860, 3760, 773, 721, (40, 392, 48))
+    assert im == (3484, 4461, 1038, 986, (40, 584, 56))
+    m = 1 << 19
+    instr, nbytes = roofline.cons_work("rv32i", m, 40, 392, 48, 773, 2)
+    assert instr == m * ((2860 + 4 * 721) * 6 + (3760 + 4 * 721) * 2)
+    assert nbytes == (m * 480 + 256 + 773 * 4 + 2 * m * 4) * 4
+    assert roofline.cons_work("rv32im", m, 40, 584, 56, 1038, 1) > (
+        instr, nbytes)
+    with pytest.raises(ValueError):
+        roofline.cons_work("rv32i", m, 40, 584, 56, 1038, 1)
+    with pytest.raises(ValueError):
+        roofline.cons_row_ops("keccak")
+
+
+def test_the_constraint_metric_counts_only_launches_it_can_count():
+    mod = harness.metric_module("cons_roofline")
+
+    class Grid:
+        def __init__(self, m, cols, device="cuda"):
+            self.shape, self.device = (m, cols), torch.device(device)
+
+    def launch(name, m, cols, k, device="cuda"):
+        air = type("Air", (), {"name": name})
+        grids = [Grid(m, c, device) for c in cols]
+        return mod._count(air, *grids, None, Grid(k, 4, device), [1, 2])
+
+    m = 1 << 19
+    assert launch("rv32i", m, (40, 392, 48), 773) == roofline.cons_work(
+        "rv32i", m, 40, 392, 48, 773, 2)
+    assert launch("rv32i", m, (40, 392, 48), 773, "cpu") is None
+    assert launch("rec", m, (40, 392, 48), 773) is None
+    assert launch("rv32im", m, (40, 392, 48), 773) is None
+    # the share: least time over the kernel's device time
+    instr, nbytes = roofline.cons_work("rv32i", m, 40, 392, 48, 773, 2)
+    least = roofline.least_seconds(instr, nbytes)
+    trace = type("T", (), {
+        "launches": {"cons_roofline": [(instr, nbytes)] * 2},
+        "kernel_seconds": lambda self, parts: (8 * least, 2)})()
+    assert mod.read(trace) == pytest.approx(25.0)
 
 
 def test_idle_gaps_are_split_by_the_host_spans_open_in_them():
