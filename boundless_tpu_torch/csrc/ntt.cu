@@ -48,6 +48,11 @@
 // passes and the exchange buffer holds m * W words, so a block keeps
 // W * m / R threads (1024 at m = 1024, which caps a thread at 64
 // registers); the C entry bt_ntt_blocks_per_sm reports what fits on an SM.
+//
+// Indices: a column (lanes < 2^31) and a row are 32-bit; every word offset
+// into the tile, the output and the tables is formed in 64 bits (size_t),
+// so a tile may hold any number of words: the rv32im data LDE of a po2-20
+// segment gives 1024 x 2392064 and 64 x 38273024 tiles, 2^31.19 words.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

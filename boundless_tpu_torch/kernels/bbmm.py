@@ -81,6 +81,23 @@ def plan(m: int, k: int, sms: int) -> tuple:
     return cols, max(1, -(-k // cols))
 
 
+def check_launch(m: int, k: int, sms: int) -> tuple:
+    """`plan` of an (M, K) call, or ValueError where the kernel cannot take
+    it. K is indexed in 32 bits, rows and word offsets in 64 (a block's
+    row stride too), so the values may hold any number of words (the
+    rv32im DEEP sum reads 2^22 x 680, 2^31.4); the grid holds < 2^31 row
+    tiles and at most MAX_SLICES slices."""
+    if not 0 <= k < 1 << 32:
+        raise ValueError(f"K = {k} exceeds the kernel's 32-bit column index")
+    if not 0 <= -(-m // BM) < 1 << 31:
+        raise ValueError(f"{m} rows need {-(-m // BM)} row tiles")
+    cols, slices = plan(m, k, sms)
+    if slices > MAX_SLICES:
+        raise ValueError(f"K = {k} needs {slices} slices: the kernel takes "
+                         f"at most {MAX_SLICES}")
+    return cols, slices
+
+
 def launches_of(m: int, k: int, sms: int) -> int:
     """Kernel launches of an (M, K) call: 2 when K is split."""
     return 1 + (plan(m, k, sms)[1] > 1)
@@ -156,10 +173,7 @@ def weighted_sum_blocks(blocks, weights: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return out
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    cols, slices = plan(m, k, _sms(index))
-    if slices > MAX_SLICES:
-        raise ValueError(f"K = {k} needs {slices} slices: the kernel takes "
-                         f"at most {MAX_SLICES}")
+    cols, slices = check_launch(m, k, _sms(index))
     partial = (torch.empty((slices, m, width), dtype=torch.int32, device=dev)
                if slices > 1 else None)
     n = len(table)

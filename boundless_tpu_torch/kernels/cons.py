@@ -542,6 +542,16 @@ def evaluate_combined(air, ctrl_evals, data_evals, accum_evals, globals_,
                   selectors(prog, masks))
 
 
+def check_grid(m: int) -> int:
+    """Blocks of a launch over an m-row grid, or ValueError where the
+    kernel cannot take it. A row is indexed in 32 bits (m < 2^31), a word
+    offset in 64, so the grids may hold any number of words (rv32im's
+    data grid at po2 20, 2^22 x 584, is 2^31.19)."""
+    if not INV_RATE <= m < 1 << 31:
+        raise ValueError(f"grid of {m} rows out of the kernel's range")
+    return -(-m // TR)
+
+
 def launch(air, ctrl_evals, data_evals, accum_evals, pubvec, weights, sels):
     """The kernel alone, on CUDA tensors, the packed public vector
     (`air.cons_pub_pack`), the (K, 4) weights and the output selectors ->
@@ -549,8 +559,7 @@ def launch(air, ctrl_evals, data_evals, accum_evals, pubvec, weights, sels):
     global LAUNCHES
     prog = CE.trace(air)
     m = data_evals.shape[0]
-    if m < INV_RATE or m >= 1 << 31:
-        raise ValueError(f"grid of {m} rows out of the kernel's range")
+    check_grid(m)
     for x, name, cols in zip((ctrl_evals, data_evals, accum_evals),
                              CE.GROUPS, prog.cols):
         _check(x, name, m, cols)

@@ -129,6 +129,22 @@ def _check(x: torch.Tensor, name: str, shape=None, device=None):
         raise ValueError(f"{name} is on {x.device}, the tile on {device}")
 
 
+def check_tile(m: int, rows_in: int, lanes: int) -> int:
+    """log2 m of a launch on an (m, lanes) tile with rows_in rows read, or
+    ValueError where the kernel cannot take it. A column index is 32-bit
+    (lanes < 2^31); every word offset is 64-bit, so a tile may hold any
+    number of words (the rv32im data LDE's leading level, 1024 x 2392064,
+    is 2^31.19)."""
+    log_m = m.bit_length() - 1
+    if m != 1 << log_m or m > MAX_M or not 0 <= rows_in <= m:
+        raise ValueError(f"sub-transform size {m} is not a power of two "
+                         f"<= {MAX_M} holding {rows_in} rows")
+    if not 0 <= lanes < 1 << 31:
+        raise ValueError(f"{lanes} lanes exceed the kernel's 32-bit column "
+                         "index")
+    return log_m
+
+
 def sub_ntt(x, forward: bool, mid=None, *, m=None, inner=None, load=None,
             store=None, rows_out=None):
     """Size-m NTT along axis 0 of the (m, lanes) tile whose first rows are
@@ -151,12 +167,7 @@ def sub_ntt(x, forward: bool, mid=None, *, m=None, inner=None, load=None,
     _check(x, "x")
     rows_in, lanes = x.shape
     m = rows_in if m is None else m
-    log_m = m.bit_length() - 1
-    if m != 1 << log_m or m > MAX_M or rows_in > m:
-        raise ValueError(f"sub-transform size {m} is not a power of two "
-                         f"<= {MAX_M} holding {rows_in} rows")
-    if lanes >= 1 << 31 or m * lanes >= 1 << 31:
-        raise ValueError(f"{m} x {lanes} exceeds the kernel's 32-bit index")
+    log_m = check_tile(m, rows_in, lanes)
     n2 = 1
     if mid is not None:
         _check(mid, "mid", device=x.device)

@@ -103,6 +103,19 @@ def lanes_for(n: int) -> int:
     return LANES[-1]
 
 
+def check_launch(cols: int, lanes: int):
+    """ValueError where the kernel cannot take a sponge launch over rows of
+    `cols` words, `lanes` lanes a hash. A row's words are indexed in 32
+    bits (cols < 2^31), a row's offset and the hash index in 64, so a
+    launch may read any number of words (the rv32im data LDE's leaves,
+    2^22 x 584, are 2^31.19)."""
+    if lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
+    if not 0 <= cols < 1 << 31:
+        raise ValueError(f"{cols} columns exceed the kernel's 32-bit word "
+                         "index")
+
+
 def _count(layout: str):
     global LAUNCHES
     with _COUNT_LOCK:
@@ -118,8 +131,7 @@ def _sponge(matrix, init, out_words: int, lanes=None):
         if init.shape[0] != n or init.device != matrix.device:
             raise ValueError("init must be (N, 24) on the matrix's device")
     lanes = lanes_for(n) if lanes is None else lanes
-    if lanes not in LANES:
-        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
+    check_launch(c, lanes)
     out = torch.empty((n, out_words), dtype=torch.int32, device=matrix.device)
     if n == 0:
         return out

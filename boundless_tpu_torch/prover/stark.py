@@ -504,13 +504,14 @@ def prove(air: Air, data_trace, pub, po2: int,
             ctrl_trace.leader != dev:
         raise ValueError(f"ctrl's leader {ctrl_trace.leader} is not the "
                          f"data's {dev}")
-    with profiling.span("stark.prove", sync=True, device=dev, po2=po2):
+    with profiling.span("stark.prove", sync=True, device=dev, po2=po2,
+                        variant=air.name, cols=air.data_cols):
         return _prove(air, data_trace, pub, po2, ps, ctrl_trace, dev)
 
 
-def _stage(name: str, dev):
+def _stage(name: str, dev, **attrs):
     """A synchronised span of one stage of `prove`."""
-    return profiling.span(name, sync=True, device=dev)
+    return profiling.span(name, sync=True, device=dev, **attrs)
 
 
 def _prove(air, data_trace, pub, po2, ps, ctrl_trace, dev) -> SegmentProof:
@@ -522,7 +523,9 @@ def _prove(air, data_trace, pub, po2, ps, ctrl_trace, dev) -> SegmentProof:
     has_ctrl = air.ctrl_cols > 0
     has_accum = air.accum_cols > 0
     ctrl_evals = accum_evals = None
-    with _stage("stark.commit", dev):
+    # the data LDE's words: the largest tensor of a proof
+    with _stage("stark.commit", dev, variant=air.name, cols=air.data_cols,
+                lde_words=INV_RATE * n * air.data_cols):
         if has_ctrl and ctrl_trace is None:
             assert not getattr(air, "ctrl_dynamic", False), \
                 "this AIR requires a ctrl_trace argument"

@@ -134,13 +134,15 @@ def prove_segment(image: MemoryImage, seg: Segment,
     unless the caller asks for the CPU)."""
     device = _device(device)
     variant = air_variant_of(image, seg)
-    with profiling.span("prove_segment", po2=seg.po2):
+    air = _AIRS[variant]
+    with profiling.span("prove_segment", po2=seg.po2, variant=variant,
+                        cols=air.data_cols):
         with profiling.span("zkvm.witness"):
             w = _gen_witness(image, seg, rng)
         data = F.upload(witness.data_for_variant(w.data, variant), device)
         ctrl, image_id = _image_ctrl(image, seg.po2, ps, device)
         pub = witness.to_public_values(w.pub, device)
-        proof = stark.prove(_AIRS[variant], data, pub, seg.po2, ps, ctrl)
+        proof = stark.prove(air, data, pub, seg.po2, ps, ctrl)
     return SegmentReceipt(proof=proof, pub=w.pub, image_id=image_id,
                           po2=seg.po2, variant=variant)
 

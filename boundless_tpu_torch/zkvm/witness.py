@@ -166,7 +166,7 @@ _KEC_LINV = [pow((j - (KEC_WORDS - 1)) % F.P, F.P - 2, F.P)
 
 
 def data_for_variant(data, variant: str):
-    """Full-layout (N, 576) witness -> the variant's committed columns.
+    """Full-layout (N, 584) witness -> the variant's committed columns.
 
     The RV32I layout is a strict prefix of the RV32IM layout (air DC /
     DC_I), so the conversion is a plain truncation."""

@@ -74,9 +74,10 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               parent's route (torch.cat, then the first design).
               Trace upload ([upload], csrc/upload.cu; phase_upload): at
               each of the main path's shapes (the po2-20 witness's 392 of
-              576 int64 columns read in place, a rec_po2-20 data trace's
-              contiguous 64, the po2-17 witness) field.upload word for
-              word against field.fp, one launch a staging block; its
+              584 int64 columns read in place, the rv32im po2-20 witness's
+              584 whole, a rec_po2-20 data trace's contiguous 64, the
+              po2-17 witness) field.upload word for word against
+              field.fp, one launch a staging block; its
               walls, the kernel's device time beside its bytes bound, the
               host route's wall. In no benchmark cell.
   5. golden   the port's po2-8 TEST_PS proofs on the card equal the JAX
@@ -98,6 +99,28 @@ Phases, one line each (or a few); any failure raises and exits non-zero:
               segment, apart from the timed ones, give the sponge's device
               time by kind (leaves, tree levels, tree top, transcript,
               verifier; SpongeProfile).
+  6w. wide    an rv32im segment of po2 20 (the M-chain guest, WIDE_FILL of
+              its cycles) through prove_segment at risc0's proof system
+              (WIDE_PS_ARGS: 50 queries, rate 1/4), as the seg20-rv32im
+              cell proves it: its data LDE is 2^22 x 584 words, past
+              2^31. The launch counts are zeroed just before the proof
+              and read right after it; every kernel must have launched,
+              the upload once a staging block of (2^20, 584).
+              verify_segment accepts the proof and rejects a tampered
+              claim. Then each kernel at the shapes that proof gives it,
+              against its plain route at tolerance 0 on WIDE_SAMPLES
+              sampled columns or rows (the last ones among them, whose
+              offsets lie past 2^31): the fused rv32im constraint kernel
+              on the proof's own 4N grid (each sampled row with the row
+              INV_RATE below it), the NTT sub-transform on the grid's
+              data as a (1024, 2392064) tile, the four-step coset LDE of
+              its first 2^20 rows (three launches, 1024, 64 and 64 rows)
+              and its inverse back, the sponge's leaves of the grid, the
+              proof's widest weighted sum (the DEEP combination) as it
+              was called. One line a kernel with its shape, launches,
+              device ms (the constraint kernel's with its wrapper's public
+              pack and weights) and the plain route's ms on the samples;
+              the proof's launches go into the kernel table.
   6a. audit   degree.assert_degrees on the card at po2 5, expand 16 (the
               coset LDE and the INTT through the NTT kernel) for rv32im,
               rv32i, RecursionAir and KeccakAir: every lane's degree equal
@@ -280,7 +303,8 @@ cluster, market and wrap, and the plain version must have run on the
 card only in the checks: [bbmm]'s, and the constraint kernel's plain
 version (its α-combine is the plain weighted sum). The last two lines are
 the kernel table (each kernel's launches on its own path, on the main
-path for the segment prover's four kernels, [wrap] for the p254 sponge
+path for the segment prover's four kernels, in [wide]'s rv32im po2-20
+proof (`launches_rv32im_po2_20`), [wrap] for the p254 sponge
 and [groth16] for the MSM, and on every other path, [audit]'s, [mesh]'s,
 [povw]'s, [cluster]'s and [market]'s included; max abs error, ms,
 plain ms and bound ms; for the two BN254 kernels also the latency bound
@@ -1440,9 +1464,10 @@ def phase_kernel_bbmm(dev, sm_clocks_per_s):
 
 # The trace upload's shapes on the main path: rows, the host's row pitch,
 # the columns uploaded
-UPLOAD_SHAPES = ((1 << 20, 576, 392),  # the po2-20 witness's rv32i columns
+UPLOAD_SHAPES = ((1 << 20, 584, 392),  # the po2-20 witness's rv32i columns
+                 (1 << 20, 584, 584),  # an rv32im po2-20 witness, whole
                  (1 << 20, 64, 64),  # a rec_po2-20 data trace, contiguous
-                 (1 << 17, 576, 392))  # the po2-17 segment's witness
+                 (1 << 17, 584, 392))  # the po2-17 segment's witness
 UPLOAD_TURNS = 3  # walls of the port's upload at each shape
 
 
@@ -1471,10 +1496,11 @@ def upload_kernel_ms(fn) -> tuple:
 
 def phase_upload(dev):
     """The trace upload at each of the main path's shapes (UPLOAD_SHAPES:
-    the po2-20 witness's 392 of 576 int64 columns read in place, a
-    recursion data trace's contiguous 64, the po2-17 witness): the port's
-    route (`field.upload` -> csrc/upload.cu) word for word against
-    `field.fp`, one launch a staging block; UPLOAD_TURNS walls of it; the
+    the po2-20 witness's 392 of 584 int64 columns read in place, an rv32im
+    witness's 584 whole, a recursion data trace's contiguous 64, the po2-17
+    witness): the port's route (`field.upload` -> csrc/upload.cu) word for
+    word against `field.fp`, one launch a staging block; UPLOAD_TURNS walls
+    of it; the
     kernel's device time (torch.profiler) beside its bytes bound (int64
     read, int32 written, at HBM_BYTES_PER_S); the host route's wall (`fp`:
     numpy's conversion, then a pageable copy); the staging's blocks and
@@ -2056,6 +2082,243 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     cons = dict(max_abs_err=cons_check.max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, shape=grid, plain_shape=grid)
     return launches, cons, witnesses.results[0]
+
+
+# [wide]: an rv32im segment of po2 20, whose data LDE (2^22 x 584) is past
+# 2^31 words. The guest reads n, then runs a mul/mulhu/divu/remu chain n
+# times: 9 cycles an iteration, 20 fixed.
+WIDE_PO2 = 20
+# risc0's proof system, as the seg20-rv32im cell proves: 50 queries, rate 1/4
+WIDE_PS_ARGS = dict(queries=50, fri_min_degree=256, commit_expand=4)
+WIDE_FILL = 0.95  # of the segment's cycles
+WIDE_SAMPLES = 48  # sampled columns or rows a check, beside the last few
+CHAIN_SRC = """
+start:
+    li t0, 2
+    ecall
+    mv s2, a0
+    li s3, 0
+    li s4, 0x9e3779b9
+    li s5, 12345
+chain:
+    beq s3, s2, done
+    mul s5, s5, s4
+    mulhu t1, s5, s4
+    divu t3, s5, t1
+    remu t4, s5, t1
+    add s5, s5, t3
+    xor s5, s5, t4
+    addi s3, s3, 1
+    j chain
+done:
+    mv a0, s5
+    li t0, 1
+    ecall
+    li t0, 0
+    li a0, 0
+    ecall
+"""
+
+
+class KeepWidestBbmm:
+    """Keeps the arguments of the weighted-sum call of the most values
+    (rows x columns) while active."""
+
+    def __enter__(self):
+        from boundless_tpu_torch.kernels import bbmm as BK
+
+        self.call, self._words = None, -1
+        self._bk, self._orig = BK, BK.weighted_sum_blocks
+
+        def weighted_sum_blocks(blocks, weights):
+            blocks = list(blocks)
+            m = max(b.shape[0] for b in blocks)
+            words = m * sum(b.shape[1] for b in blocks)
+            if words > self._words:
+                self.call, self._words = (blocks, weights), words
+            return self._orig(blocks, weights)
+
+        BK.weighted_sum_blocks = weighted_sum_blocks
+        return self
+
+    def __exit__(self, *exc):
+        self._bk.weighted_sum_blocks = self._orig
+
+
+def sampled(n: int, seed: int) -> torch.Tensor:
+    """WIDE_SAMPLES indices below n, drawn, with 0, 1 and the last three."""
+    rng = np.random.default_rng(seed)
+    picked = {0, 1, n - 1, n - 2, n - 3} | {
+        int(i) for i in rng.choice(n, WIDE_SAMPLES, replace=False)}
+    return torch.tensor(sorted(picked))
+
+
+def phase_wide(dev):
+    """An rv32im segment of po2 20 through prove_segment, then each kernel
+    at the shapes its proof gives it against its plain route on sampled
+    columns or rows (see the module's docstring). Returns the proof's
+    launches by kernel."""
+    from boundless_tpu_torch.core import bbmm as B
+    from boundless_tpu_torch.core import field as F
+    from boundless_tpu_torch.core import ntt as NTT
+    from boundless_tpu_torch.core import poseidon2 as P2
+    from boundless_tpu_torch.kernels import bbmm as BK
+    from boundless_tpu_torch.kernels import cons as CK
+    from boundless_tpu_torch.kernels import ntt as NK
+    from boundless_tpu_torch.kernels import poseidon2 as P2K
+    from boundless_tpu_torch.kernels import upload as UK
+    from boundless_tpu_torch.prover import stark
+    from boundless_tpu_torch.zkvm import guests, prove
+    from boundless_tpu_torch.zkvm.executor import Executor
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    def same(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"[wide] {what}: the kernel's words differ "
+                                 f"from the plain route's")
+
+    image = guests.build(CHAIN_SRC)
+    iters = (int(WIDE_FILL * (1 << WIDE_PO2)) - 20) // 9
+    t0 = time.perf_counter()
+    res = Executor(image, guests.words([iters]), segment_po2=WIDE_PO2).run()
+    t_exec = time.perf_counter() - t0
+    if len(res.segments) != 1:
+        raise AssertionError(f"[wide] {len(res.segments)} segments, "
+                             f"expected 1")
+    seg = res.segments[0]
+    variant = prove.air_variant_of(image, seg)
+    if variant != "rv32im":
+        raise AssertionError(f"[wide] the chain guest picked {variant}")
+    ps = stark.ProofSystem(**WIDE_PS_ARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with CaptureCons() as cap, KeepWidestBbmm() as widest:
+        zero_counts()
+        t0 = time.perf_counter()
+        receipt = prove.prove_segment(image, seg, ps, device=dev)
+        torch.cuda.synchronize()
+        t_prove = time.perf_counter() - t0
+        launches = counts()
+        layouts = dict(P2K.LAUNCHES_BY_LAYOUT)
+    peak = torch.cuda.max_memory_allocated()
+    air, args = cap.calls[0] if len(cap.calls) == 1 else (None, None)
+    if air is None or air.name != "rv32im":
+        raise AssertionError(f"[wide] {len(cap.calls)} constraint-kernel "
+                             f"calls, expected one of the rv32im AIR")
+    uploads = -(-(1 << WIDE_PO2) // UK.block_rows(air.data_cols))
+    if min(launches.values()) <= 0 or launches["trace_upload"] != uploads:
+        raise AssertionError(f"[wide] the proof's launches {launches}, "
+                             f"{uploads} uploads expected")
+    if not prove.verify_segment(receipt, ps):
+        raise AssertionError("[wide] verify_segment rejected the proof")
+    io = receipt.pub["io"].copy()
+    io[0, 2] ^= 1
+    tampered = dataclasses.replace(receipt, pub={**receipt.pub, "io": io})
+    if prove.verify_segment(tampered, ps):
+        raise AssertionError("[wide] verify_segment accepted a tampered io "
+                             "word")
+    ctrl, data, accum = args[:3]
+    m, cols = data.shape
+    say("wide", guest="chain", po2=WIDE_PO2, variant=variant,
+        queries=ps.queries, commit_expand=ps.commit_expand, cycles=seg.cycles,
+        exec_s=f"{t_exec:.3f}", prove_s=f"{t_prove:.3f}",
+        max_memory_allocated=peak, lde_words=m * cols,
+        launches=json.dumps(launches).replace(" ", ""),
+        sponge_by_layout=json.dumps(layouts).replace(" ", ""),
+        verify="accepted", tampered="rejected")
+    del receipt, tampered, cap
+
+    # the constraint kernel on the proof's own grid; a sampled row r reads
+    # row r + INV_RATE (mod m), so the plain route runs on the rows r .. r
+    # + 2 INV_RATE - 1 of each sample, side by side
+    before = CK.LAUNCHES
+    got, ms = timed(lambda: CK.evaluate_combined(air, *args))
+    rows = sampled(m, 1)
+    span = 2 * INV_RATE_GRID
+    grid = ((rows[:, None] + torch.arange(span)) % m).reshape(-1).to(dev)
+    want, plain_ms = timed(lambda: plain_combined(
+        air, tuple(x[grid].contiguous() for x in args[:3]) + tuple(args[3:])))
+    for k, (g, w) in enumerate(zip(got, want)):
+        same(g[rows.to(dev)], w[::span], f"constraint class {k}")
+    say("wide", kernel="cons_eval", variant=air.name, grid=f"{m}x{cols}",
+        ctrl_cols=ctrl.shape[1], accum_cols=accum.shape[1],
+        sampled_rows=len(rows), tolerance=0, equal="yes",
+        launches=CK.LAUNCHES - before, wrapper_ms=f"{ms:.4f}",
+        plain_ms_sampled=f"{plain_ms:.4f}", plain_rows=len(grid))
+    del got, want, grid
+
+    # the NTT: the grid's data as the four-step's leading (1024, .) tile
+    x = data.view(NK.MAX_M, -1)
+    before = NK.LAUNCHES
+    y, ms = timed(lambda: NK.sub_ntt(x, True))
+    picked = sampled(x.shape[1], 2).to(dev)
+    want, plain_ms = timed(lambda: NK.sub_ntt_plain(
+        x[:, picked].contiguous(), True))
+    same(y[:, picked], want, f"sub-transform {tuple(x.shape)}")
+    say("wide", kernel="ntt_sub_transform", tile=f"{x.shape[0]}x{x.shape[1]}",
+        words=x.numel(), sampled_cols=len(picked), tolerance=0, equal="yes",
+        launches=NK.LAUNCHES - before, kernel_ms=f"{ms:.4f}",
+        plain_ms_sampled=f"{plain_ms:.4f}")
+    del y
+    coeffs = data[: 1 << WIDE_PO2]
+    before = NK.LAUNCHES
+    evals, ms = timed(lambda: NTT.coset_evaluate(coeffs, expand=4))
+    if NK.LAUNCHES - before != 3 or tuple(evals.shape) != (m, cols):
+        raise AssertionError(f"[wide] coset LDE: {NK.LAUNCHES - before} "
+                             f"launches, shape {tuple(evals.shape)}")
+    picked = sampled(cols, 3).to(dev)
+    want, plain_ms = timed(lambda: NTT.coset_evaluate_plain(
+        coeffs[:, picked].contiguous(), 4))
+    same(evals[:, picked], want, f"coset LDE of {tuple(coeffs.shape)}")
+    back, back_ms = timed(lambda: NTT.coset_interpolate(evals, expand=4))
+    same(back, coeffs, "coset interpolation of the LDE")
+    say("wide", kernel="ntt_sub_transform", four_step=f"{coeffs.shape[0]}x"
+        f"{cols}->{m}x{cols}", sampled_cols=len(picked), tolerance=0,
+        equal="yes", back="equal", launches=3, lde_ms=f"{ms:.4f}",
+        interpolate_ms=f"{back_ms:.4f}", plain_ms_sampled=f"{plain_ms:.4f}")
+    del evals, back
+    torch.cuda.empty_cache()
+
+    # the sponge's leaves of the grid's data rows
+    before = P2K.LAUNCHES_BY_LAYOUT["lanes1"]
+    leaves, ms = timed(lambda: P2K.hash_rows(data))
+    rows = sampled(m, 4)
+    picked = data[rows.to(dev)]
+    want, plain_ms = timed(lambda: P2.hash_rows(picked))
+    same(leaves[rows.to(dev)], want, f"sponge leaves of {m}x{cols}")
+    say("wide", kernel="poseidon2_sponge", leaves=f"{m}x{cols}",
+        layout="lanes1", sampled_rows=len(rows), tolerance=0, equal="yes",
+        launches=P2K.LAUNCHES_BY_LAYOUT["lanes1"] - before,
+        kernel_ms=f"{ms:.4f}", plain_ms_sampled=f"{plain_ms:.4f}")
+    del leaves, picked
+
+    # the proof's widest weighted sum, as it was called (the plain route
+    # on the host: the card's plain calls are counted apart)
+    blocks, weights = widest.call
+    mw = max(b.shape[0] for b in blocks)
+    k = sum(b.shape[1] for b in blocks)
+    before = BK.LAUNCHES
+    got, ms = timed(lambda: B.bb_weighted_sum_blocks(blocks, weights))
+    rows = sampled(mw, 5)
+    want = B.bb_weighted_sum_blocks_plain(
+        [(b[rows.to(b.device)] if b.shape[0] == mw else b).cpu()
+         for b in blocks], weights.cpu())
+    same(got[rows.to(dev)].cpu(), want, f"weighted sum {mw}x{k}")
+    say("wide", kernel="bb_weighted_sum", values=f"{mw}x{k}",
+        w=weights.shape[1], blocks=len(blocks), words=mw * k,
+        sampled_rows=len(rows), tolerance=0, equal="yes",
+        launches=BK.LAUNCHES - before, kernel_ms=f"{ms:.4f}")
+    del got, blocks, weights, widest, args, ctrl, data, accum, x, coeffs
+    torch.cuda.empty_cache()
+    return launches
 
 
 class KeepResults:
@@ -4210,6 +4473,7 @@ def main():
     phase_golden(dev, cons_check)
     launches, stats["cons_eval"], main_witness = phase_main(
         dev, cons_check, sm_clocks_per_s)
+    wide_launches = timed_phase("wide", lambda: phase_wide(dev))
     audit_launches = timed_phase("audit", lambda: phase_audit(dev))
     timed_phase("debug", lambda: phase_debug(dev, main_witness))
     mesh_launches = timed_phase("mesh", lambda: phase_mesh(dev))
@@ -4250,6 +4514,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name],
+         "launches_rv32im_po2_20": wide_launches.get(name, 0),
          "launches_audit": audit_launches[name],
          "launches_mesh": mesh_launches[name],
          "launches_recursion": rec_launches.get(name, 0),

@@ -190,7 +190,8 @@ def test_prove_segment_records_its_layers(tracing):
     roots = [s for s in made if s["name"] == "prove_segment"]
     assert len(roots) == 1
     root = roots[0]
-    assert root["parent"] is None and root["attrs"] == {"po2": 8}
+    assert root["parent"] is None and root["attrs"] == {
+        "po2": 8, "variant": "rv32i", "cols": 392}
     assert all(s["root"] == root["id"] for s in made)
 
     def children(of):
@@ -208,6 +209,57 @@ def test_prove_segment_records_its_layers(tracing):
                 <= parent["t1_ns"]
     order = sorted(STAGES, key=lambda n: stages[n]["t0_ns"])
     assert order == list(STAGES)
+
+
+def _span_table_module(monkeypatch):
+    """tools/span_table.py, loaded as a module (it sets the benchmark's
+    build paths in the environment, put back after the test)."""
+    import importlib.util
+    import os
+
+    for key in ("TORCH_EXTENSIONS_DIR", "TRITON_CACHE_DIR", "USE_FLAX"):
+        if key in os.environ:
+            monkeypatch.setenv(key, os.environ[key])
+        else:
+            monkeypatch.delenv(key, raising=False)
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "span_table.py")
+    spec = importlib.util.spec_from_file_location("span_table_tool", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("guest,inputs,variant,cols", [
+    ("echo", [2, 11, 22], "rv32i", 392),
+    ("muldiv", [1234567, 89], "rv32im", 584)])
+def test_segment_spans_name_the_air_and_its_lde(tracing, monkeypatch, guest,
+                                                inputs, variant, cols):
+    image = getattr(guests, guest)()
+    seg = Executor(image, guests.words(inputs),
+                   segment_po2=8).run().segments[0]
+    prove._image_ctrl(image, 8, prove.TEST_PS, "cpu")
+    r = prove.prove_segment(image, seg, prove.TEST_PS, device="cpu",
+                            rng=np.random.default_rng(5))
+    assert r.variant == variant
+    assert prove.verify_segment(r, prove.TEST_PS)
+    made = tracing.new()
+    by_name = {s["name"]: s for s in made}
+    lde_words = 4 * 256 * cols
+    assert by_name["prove_segment"]["attrs"] == dict(po2=8, variant=variant,
+                                                     cols=cols)
+    assert by_name["stark.prove"]["attrs"] == dict(po2=8, variant=variant,
+                                                   cols=cols)
+    assert by_name["stark.commit"]["attrs"] == dict(
+        variant=variant, cols=cols, lde_words=lde_words)
+    table = _span_table_module(monkeypatch).span_table(made)
+    rows = {row[0]: row for row in table}
+    want = f"cols={cols} po2=8 variant={variant}"
+    assert rows["prove_segment"][5] == want
+    assert rows["prove_segment/stark.prove"][5] == want
+    assert rows["prove_segment/stark.prove/stark.commit"][5] == \
+        f"cols={cols} lde_words={lde_words} variant={variant}"
+    assert rows["prove_segment/upload"][5] == "route=host"
 
 
 def test_a_claim_records_the_task_s_wait():

@@ -7,7 +7,9 @@
 its per-layer metrics, then the tracer's spans of the window
 (`boundless_tpu_torch/utils/profiling.py`, turned on by the metric files
 that read them) as a table by path from the root span (count, mean and
-total seconds, mean self seconds: the span less its children), and, with
+total seconds, mean self seconds: the span less its children, and the
+spans' attributes, such as the AIR's `variant`, its data `cols` and the
+data LDE's `lde_words`), and, with
 `--chrome`, the spans as Chrome trace events. `--mode off` and `--mode
 on` are the untraced run (the end-to-end metrics) with the tracer off or
 on from the start: run them in turns in one call to read what the tracer
@@ -27,9 +29,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from proofbench import run as R  # noqa: E402  (the checkout's build paths)
 
 
+def attrs_of(records) -> str:
+    """The spans' attributes: `key=value` where every span gives the key
+    one value, `key=<n values>` where they differ."""
+    values = collections.defaultdict(set)
+    for r in records:
+        for k, v in r["attrs"].items():
+            values[k].add(str(v))
+    return " ".join(f"{k}={next(iter(vs))}" if len(vs) == 1
+                    else f"{k}=<{len(vs)} values>"
+                    for k, vs in sorted(values.items()))
+
+
 def span_table(records) -> list:
-    """[path, count, mean s, total s, mean self s] by path from the root,
-    largest total first."""
+    """[path, count, mean s, total s, mean self s, attributes] by path
+    from the root, largest total first."""
     by_id = {r["id"]: r for r in records}
     child_ns = collections.Counter()
     for r in records:
@@ -43,14 +57,15 @@ def span_table(records) -> list:
             names.append(r["name"])
         return "/".join(reversed(names))
 
-    rows = collections.defaultdict(lambda: [0, 0, 0])
+    rows = collections.defaultdict(lambda: [0, 0, 0, []])
     for r in records:
         row = rows[path(r)]
         row[0] += 1
         row[1] += r["t1_ns"] - r["t0_ns"]
         row[2] += r["t1_ns"] - r["t0_ns"] - child_ns[r["id"]]
-    return sorted(([p, n, t / n / 1e9, t / 1e9, s / n / 1e9]
-                   for p, (n, t, s) in rows.items()),
+        row[3].append(r)
+    return sorted(([p, n, t / n / 1e9, t / 1e9, s / n / 1e9, attrs_of(rs)]
+                   for p, (n, t, s, rs) in rows.items()),
                   key=lambda row: -row[3])
 
 
@@ -88,9 +103,9 @@ def main(argv=None) -> int:
         if args.chrome:
             os.makedirs(os.path.dirname(args.chrome) or ".", exist_ok=True)
             profiling.export_chrome(args.chrome)
-        for p, n, mean, total, self_s in out["spans"]:
+        for p, n, mean, total, self_s, attrs in out["spans"]:
             print(f"{p}  n={n}  mean={mean:.4f}  total={total:.3f}  "
-                  f"self={self_s:.4f}")
+                  f"self={self_s:.4f}  {attrs}".rstrip())
     print(json.dumps(out), flush=True)
     return 0
 
