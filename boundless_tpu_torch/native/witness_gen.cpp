@@ -6,6 +6,11 @@
 // buffers"). Must stay bit-identical to the Python replay; the test suite
 // diffs both outputs.
 //
+// data_out may hold an earlier trace (zkvm/prove.py reuses one host buffer
+// a concurrent proof): each cycle row is cleared just before it is filled,
+// while it is in cache, so rows [0, cycles) come out as from a zeroed array;
+// the Python tail clears the rows after them.
+//
 // Build: g++ -O2 -shared -fPIC -o libbt_witness.so witness_gen.cpp
 // Loaded via ctypes (no pybind11 in the image).
 
@@ -219,6 +224,7 @@ extern "C" int bt_trace_cycles(
   int clk = 0;
   while (clk < cycles) {
     int64_t* r = row(clk);
+    std::memset(r, 0, (size_t)data_cols * sizeof(int64_t));
     r[L.pc] = pc;
     for (int i = 0; i < 32; i++) {
       r[L.regs + 2 * i] = regs[i] & 0xFFFF;

@@ -10,19 +10,33 @@ CPU run passes `device="cpu"` (the plain torch versions of the kernels).
 
 `NATIVE_WITNESSES` / `REPLAY_WITNESSES` count the witnesses that came from
 the C++ generator and from the Python replay.
+
+The witness's host trace buffer. `prove_segment` fills a (2^po2, 584)
+int64 buffer taken from a pool and hands it back once the upload has
+read it, before the STARK: a buffer is made only when every one of its
+shape is in use, so the pool holds as many of a shape as proofs of that
+shape ran at once (one in a single prover, one a prove thread in the
+cluster), kept for the life of the process. On a CUDA device a buffer is
+page-locked once when it is made (`cudaHostRegister`), so the upload's
+copies run from it as DMA, and no segment faults in a fresh 4.9 GB array
+at po2 20. `TRACE_BUFFERS_MADE` / `TRACE_BUFFER_REUSES` count the
+buffers made and the proofs that took one already made; the span
+`zkvm.witness` says which (`buffer="new"` / `"reused"`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import subprocess
 import threading
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..air.rv32im import Rv32imAir
+from ..air.rv32im import DC, Rv32imAir
 from ..core import field as F
 from ..prover import stark
 from ..utils import profiling
@@ -38,8 +52,13 @@ _AIRS = {"rv32im": Rv32imAir(), "rv32i": Rv32imAir(False)}
 
 NATIVE_WITNESSES = 0
 REPLAY_WITNESSES = 0
-# the cluster's worker threads share the counters and the image cache
+TRACE_BUFFERS_MADE = 0
+TRACE_BUFFER_REUSES = 0
+# the cluster's worker threads share the counters, the image cache and
+# the trace buffers
 _LOCK = threading.Lock()
+# (shape, page-locked) -> the trace buffers of that kind not in use
+_TRACE_BUFFERS: dict = {}
 
 
 def _device(device) -> torch.device:
@@ -109,12 +128,52 @@ def mem_root(words: dict) -> tuple:
         {a >> 2: v for a, v in words.items()}).root()
 
 
-def _gen_witness(image, seg, rng=None):
-    """The C++ witness generator; the Python replay only when the native
-    library cannot be built or loaded (guest faults propagate)."""
+def _make_trace_buffer(shape, pinned: bool) -> np.ndarray:
+    """A C-contiguous int64 host array of `shape`; `pinned`: page-locked
+    for the card's copies (unregistered when the array is freed). A
+    failed registration leaves it pageable, which the upload reads too."""
+    buf = np.empty(shape, dtype=np.int64)
+    if pinned:
+        cudart = torch.cuda.cudart()
+        ptr = buf.ctypes.data
+        # cudaHostRegisterPortable: page-locked for every device's context
+        if int(cudart.cudaHostRegister(ptr, buf.nbytes, 1)) == 0:
+            weakref.finalize(buf, cudart.cudaHostUnregister, ptr)
+    return buf
+
+
+@contextlib.contextmanager
+def _trace_buffer(shape, device: torch.device):
+    """(buffer, reused) for one proof's witness: a free buffer of `shape`
+    from the pool, else a new one (page-locked on a CUDA device); back to
+    the pool on exit."""
+    global TRACE_BUFFERS_MADE, TRACE_BUFFER_REUSES
+    key = (tuple(shape), device.type == "cuda")
+    with _LOCK:
+        free = _TRACE_BUFFERS.setdefault(key, [])
+        buf = free.pop() if free else None
+        if buf is not None:
+            TRACE_BUFFER_REUSES += 1
+    reused = buf is not None
+    if not reused:
+        buf = _make_trace_buffer(*key)
+        with _LOCK:
+            TRACE_BUFFERS_MADE += 1
+    try:
+        yield buf, reused
+    finally:
+        with _LOCK:
+            free.append(buf)
+
+
+def _gen_witness(image, seg, rng=None, out=None):
+    """The C++ witness generator (into `out` when given, see
+    `witness.trace_segment_native`); the Python replay, into an array of
+    its own, only when the native library cannot be built or loaded
+    (guest faults propagate)."""
     global NATIVE_WITNESSES, REPLAY_WITNESSES
     try:
-        w = witness.trace_segment_native(image, seg, seg.po2, rng)
+        w = witness.trace_segment_native(image, seg, seg.po2, rng, out)
     except GuestFault:
         raise
     except (OSError, AttributeError, subprocess.SubprocessError):
@@ -137,9 +196,15 @@ def prove_segment(image: MemoryImage, seg: Segment,
     air = _AIRS[variant]
     with profiling.span("prove_segment", po2=seg.po2, variant=variant,
                         cols=air.data_cols):
-        with profiling.span("zkvm.witness"):
-            w = _gen_witness(image, seg, rng)
-        data = F.upload(witness.data_for_variant(w.data, variant), device)
+        # the upload has read the buffer when it returns (its copies are
+        # synchronised), so the buffer goes back before the STARK
+        with _trace_buffer((1 << seg.po2, DC.total),
+                           device) as (buf, reused):
+            with profiling.span("zkvm.witness",
+                                buffer="reused" if reused else "new"):
+                w = _gen_witness(image, seg, rng, buf)
+            data = F.upload(witness.data_for_variant(w.data, variant),
+                            device)
         ctrl, image_id = _image_ctrl(image, seg.po2, ps, device)
         pub = witness.to_public_values(w.pub, device)
         proof = stark.prove(air, data, pub, seg.po2, ps, ctrl)

@@ -660,8 +660,10 @@ def _postprocess(image, seg, n, data, regs, pc, seqs, mem_ops, io_rows,
         # non-final segments pause un-halted; final ones must have halted
         raise GuestFault("segment halt state does not match plan")
 
-    # padding rows: frozen state + default one-hots
+    # padding rows: frozen state + default one-hots (cleared first: the
+    # native loop may have filled a buffer that held an earlier trace)
     pad = data[seg.cycles : n]
+    pad[:] = 0
     pad[:, DC.pc] = pc
     pad[:, DC.regs.start : DC.regs.stop] = _reg_limbs(regs)
     pad[:, DC.halted] = 1 if halted else 0
@@ -795,12 +797,18 @@ def _postprocess(image, seg, n, data, regs, pc, seqs, mem_ops, io_rows,
 
 
 def trace_segment_native(image: MemoryImage, seg: Segment, po2: int,
-                         rng: Optional[np.random.Generator] = None
+                         rng: Optional[np.random.Generator] = None,
+                         out: Optional[np.ndarray] = None
                          ) -> SegmentWitness:
     """C++ cycle loop (native/witness_gen.cpp) + shared Python tail.
 
     Bit-identical to trace_segment (diffed in tests); ~100x faster on the
     per-cycle fill, keeping TPU chips fed at large po2.
+
+    out: a C-contiguous (2^po2, DC.total) int64 array to fill in place and
+    return as the witness's data, whatever it holds (the cycle loop clears
+    each row it fills, the tail the padding rows); None allocates a zeroed
+    one. Either gives the same words.
     """
     import ctypes
 
@@ -809,7 +817,14 @@ def trace_segment_native(image: MemoryImage, seg: Segment, po2: int,
     lib = native.witness_lib()
     n = 1 << po2
     assert seg.cycles <= n - 1
-    data = np.zeros((n, DC.total), dtype=np.int64)
+    if out is None:
+        data = np.zeros((n, DC.total), dtype=np.int64)
+    else:
+        if out.shape != (n, DC.total) or out.dtype != np.int64 or \
+                not out.flags.c_contiguous:
+            raise ValueError(f"out must be a C-contiguous int64 array of "
+                             f"shape {(n, DC.total)}")
+        data = out
     ctrl = build_ctrl_trace(image, po2)
     addr_to_trow = {a: i for i, (a, _) in
                     enumerate(sorted(image.words.items()))}

@@ -2081,7 +2081,10 @@ def phase_main(dev, cons_check, sm_clocks_per_s):
     grid = f"{m}-row grid, {air.name}"
     cons = dict(max_abs_err=cons_check.max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, shape=grid, plain_shape=grid)
-    return launches, cons, witnesses.results[0]
+    # its data is prove_segment's pooled trace buffer, which a later proof
+    # of the same size refills: [debug] checks a copy
+    w = witnesses.results[0]
+    return launches, cons, dataclasses.replace(w, data=w.data.copy())
 
 
 # [wide]: an rv32im segment of po2 20, whose data LDE (2^22 x 584) is past

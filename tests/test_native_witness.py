@@ -142,3 +142,54 @@ def test_fast_execute_faults():
     with pytest.raises(GuestFault):
         fast_execute(guests.loop_guest(), guests.words([10**9]),
                      max_cycles=1000)
+
+
+# The port's generator into a reused buffer (`trace_segment_native(out=)`,
+# as `zkvm/prove.py`'s pool hands it): guests of different memory
+# behaviour in turn, each into the buffer the one before left behind.
+PORT_CHAIN = [
+    ("memtest", lambda G: (G.memtest(), G.words([4, 9, 8, 7, 6]))),
+    ("echo", lambda G: (G.echo(), G.words([3, 10, 20, 30]))),
+    ("loop", lambda G: (G.loop_guest(), G.words([600]))),
+    ("signed_m", lambda G: (G.signed_m_guest(),
+                            G.words([0x80000000, 0xFFFFFFFF]))),
+    ("keccak", lambda G: (G.keccak_guest(), b"")),
+]
+DIRT = np.int64(0x5A5A5A5A5A5A5A5A)
+
+
+@pytest.mark.parametrize("step", range(len(PORT_CHAIN)),
+                         ids=[name for name, _ in PORT_CHAIN])
+def test_port_witness_into_a_dirty_buffer_is_word_equal(step):
+    """A buffer filled with a nonzero pattern, then with every segment of
+    the guest before this one in the chain, then with each segment of this
+    guest: each such witness equals, word for word (data and publics), the
+    one into a fresh array and the Python replay's."""
+    from boundless_tpu_torch.air.rv32im import DC as TDC
+    from boundless_tpu_torch.zkvm import guests as TG, witness as TW
+    from boundless_tpu_torch.zkvm.executor import Executor as TExecutor
+
+    def segments(i):
+        image, inp = PORT_CHAIN[i][1](TG)
+        return image, TExecutor(image, inp, segment_po2=PO2).run().segments
+
+    rng = lambda: np.random.default_rng(1234)  # noqa: E731
+    buf = np.full((1 << PO2, TDC.total), DIRT, dtype=np.int64)
+    if step:
+        image, segs = segments(step - 1)
+        for seg in segs:
+            TW.trace_segment_native(image, seg, PO2, rng(), out=buf)
+    image, segs = segments(step)
+    if PORT_CHAIN[step][0] == "loop":
+        assert len(segs) >= 2
+    for seg in segs:
+        got = TW.trace_segment_native(image, seg, PO2, rng(), out=buf)
+        assert got.data is buf
+        for want in (TW.trace_segment_native(image, seg, PO2, rng()),
+                     TW.trace_segment(image, seg, PO2, rng())):
+            np.testing.assert_array_equal(got.data, want.data)
+            assert sorted(got.pub) == sorted(want.pub)
+            for key in want.pub:
+                np.testing.assert_array_equal(np.asarray(got.pub[key]),
+                                              np.asarray(want.pub[key]),
+                                              err_msg=key)

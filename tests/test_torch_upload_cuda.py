@@ -7,7 +7,9 @@ witness's shape, uploaded whole, as its 392 rv32i columns read in place
 (2^20, 64) copy, a recursion data trace's shape: word-equal to `fp`, one
 launch a staging block. A po2-12 segment proof whose witness went up
 through the kernel equals, word for word, the proof of the same witness
-uploaded by `fp` on the host.
+uploaded by `fp` on the host. `prove_segment`'s po2-20 trace buffer on the
+card is page-locked, and the upload from it, at the rv32i columns and
+whole, is word-equal to `fp`.
 
 Marked `cuda`: the kernel has no CPU mode, so these skip on a host without
 an NVIDIA GPU (the CUDA source's CPU checks are tests/test_torch_upload.py).
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from boundless_tpu_torch import convert
+from boundless_tpu_torch.air.rv32im import DC, DC_I
 from boundless_tpu_torch.core import field as F
 from boundless_tpu_torch.kernels import upload as UK
 from boundless_tpu_torch.zkvm import guests, prove
@@ -91,3 +94,24 @@ def test_a_proof_uploaded_on_the_card_equals_the_host_route(dev,
     assert sorted(card) == sorted(host)
     for k in host:
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+
+
+@pytest.mark.parametrize("cols", [
+    pytest.param(DC_I.total, id="rv32i_392_of_584"),
+    pytest.param(DC.total, id="rv32im_584"),
+])
+def test_the_trace_buffer_is_page_locked_and_uploads_word_equal(dev, cols):
+    shape = (1 << 20, DC.total)
+    with prove._trace_buffer(shape, dev) as (buf, _):
+        # torch asks cudaPointerGetAttributes: registered host memory
+        assert torch.from_numpy(buf).is_pinned()
+        i64 = np.iinfo(np.int64)
+        buf[:] = np.random.default_rng(cols).integers(
+            i64.min, i64.max, size=shape, dtype=np.int64, endpoint=True)
+        buf[:3] %= 4 * F.P
+        words = buf[:, :cols]
+        got = F.upload(words, dev)
+        torch.cuda.synchronize()
+        want = torch.from_numpy(F.mont_np(words).astype(np.int32))
+    assert got.shape == (1 << 20, cols)
+    assert torch.equal(got.cpu(), want)

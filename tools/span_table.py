@@ -10,7 +10,9 @@ that read them) as a table by path from the root span (count, mean and
 total seconds, mean self seconds: the span less its children, and the
 spans' attributes, such as the AIR's `variant`, its data `cols` and the
 data LDE's `lde_words`), and, with
-`--chrome`, the spans as Chrome trace events. `--mode off` and `--mode
+`--chrome`, the spans as Chrome trace events; the JSON line also counts
+the segment trace buffers the process made and reused (`zkvm/prove.py`,
+set-up included). `--mode off` and `--mode
 on` are the untraced run (the end-to-end metrics) with the tracer off or
 on from the start: run them in turns in one call to read what the tracer
 costs. The last line of standard output is one JSON object.
@@ -82,6 +84,7 @@ def main(argv=None) -> int:
     import torch
 
     from boundless_tpu_torch.utils import profiling
+    from boundless_tpu_torch.zkvm import prove
     from proofbench import harness
 
     if not torch.cuda.is_available():
@@ -96,7 +99,10 @@ def main(argv=None) -> int:
     out = dict(workload=cell.name, seed=args.seed, mode=args.mode,
                correct=result["correct"], metrics=result["metrics"],
                jobs=result["jobs"]["completed"],
-               card=torch.cuda.get_device_name(0))
+               card=torch.cuda.get_device_name(0),
+               # the process's segment trace buffers, set-up included
+               trace_buffers_made=prove.TRACE_BUFFERS_MADE,
+               trace_buffer_reuses=prove.TRACE_BUFFER_REUSES)
     if args.mode == "traced":
         records = profiling.records()
         out["spans"] = span_table(records)
