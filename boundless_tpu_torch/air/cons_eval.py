@@ -35,7 +35,7 @@ import torch
 from ..core import bbmm
 from ..core import field as F
 from ..core import ntt as NTT
-from .dsl import Columns
+from .dsl import Columns, ExtVal, VecVal
 
 # Node opcodes. A node is (op, a, b): inputs carry their location in a, b.
 COL = "col"  # a = 2 * group + (1 if nxt), b = column; groups ctrl/data/accum
@@ -318,8 +318,6 @@ def trace(air) -> Program:
         now = Columns(*(_EmitCols(alg, g, False, c) for g, c in enumerate(cols)))
         nxt = Columns(*(_EmitCols(alg, g, True, c) for g, c in enumerate(cols)))
         cons = air.constraints(alg, now, nxt, globals_list, kpub)
-        from ..prover.stark import ExtVal, VecVal
-
         outputs, kinds = [], []
         for c in cons:
             if isinstance(c, VecVal):

@@ -14,6 +14,7 @@ import torch
 
 from ..core import field as F
 from . import dsl
+from .dsl import ColAccessor, ExtVal, VecVal
 
 
 def check_constraints(air, ctrl, data, pub, globals_seed: int = 7):
@@ -22,9 +23,6 @@ def check_constraints(air, ctrl, data, pub, globals_seed: int = 7):
     ctrl/data: Montgomery (N, C) int32 tensors on one device (ctrl may be
     None for an AIR without control columns). Globals are pseudorandomly
     drawn (any values must satisfy a correct witness identically)."""
-    from ..prover.stark import ExtVal, VecVal
-    from ..prover.stark import _ColAccessor as acc_of
-
     dev = data.device
     rng = np.random.default_rng(globals_seed)
     globals_ = F.ext(rng.integers(1, F.P, size=(max(air.globals_count, 1), 4),
@@ -38,9 +36,9 @@ def check_constraints(air, ctrl, data, pub, globals_seed: int = 7):
     def roll(t):
         return None if t is None else torch.roll(t, -1, dims=0)
 
-    now = dsl.Columns(acc_of(ctrl), acc_of(data), acc_of(accum))
-    nxt = dsl.Columns(acc_of(roll(ctrl)), acc_of(roll(data)),
-                      acc_of(roll(accum)))
+    now = dsl.Columns(ColAccessor(ctrl), ColAccessor(data), ColAccessor(accum))
+    nxt = dsl.Columns(ColAccessor(roll(ctrl)), ColAccessor(roll(data)),
+                      ColAccessor(roll(accum)))
     cons = air.constraints(dsl.BaseAlg(dev), now, nxt, globals_, pub)
     zclass = getattr(air, "_zclass", None) if zk else None
     failures = []

@@ -34,7 +34,7 @@ import torch
 
 from ..core import field as F
 from ..core import ntt as NTT
-from .dsl import Air, BaseAlg, Columns
+from .dsl import Air, BaseAlg, ColAccessor, Columns, ExtVal, VecVal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +61,6 @@ def _rand_field(rng: np.random.Generator, shape, device) -> torch.Tensor:
 
 def _flatten_constraints(cons):
     """Constraint list -> ((M, K) base column block, per-column labels)."""
-    from ..prover.stark import ExtVal, VecVal
-
     cols = []
     labels = []
     for idx, c in enumerate(cons):
@@ -89,8 +87,6 @@ def audit_degrees(air: Air, pub, po2: int = 5, expand: int = 16,
     ConstraintDegree per scalar constraint lane. Degrees up to
     expand*N - 1 are measured exactly; anything at the ceiling means "at
     least this" (raise `expand`)."""
-    from ..prover.stark import _ColAccessor
-
     dev = torch.device(device)
     n = 1 << po2
     rng = np.random.default_rng(seed)
@@ -107,9 +103,9 @@ def audit_degrees(air: Air, pub, po2: int = 5, expand: int = 16,
              for t in traces]
     # "next row" on the expanded grid: the trace step w_N equals
     # w_{E*N}^E, i.e. a roll by `expand` rows
-    now = Columns(*(_ColAccessor(e) for e in evals))
-    nxt = Columns(*(_ColAccessor(None if e is None else
-                                 torch.roll(e, -expand, dims=0))
+    now = Columns(*(ColAccessor(e) for e in evals))
+    nxt = Columns(*(ColAccessor(None if e is None else
+                                torch.roll(e, -expand, dims=0))
                     for e in evals))
     cons = air.constraints(BaseAlg(dev), now, nxt, globals_, pub)
     flat, labels = _flatten_constraints(cons)  # (E*N, K)

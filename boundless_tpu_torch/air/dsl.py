@@ -6,6 +6,14 @@ pointwise over an LDE grid in the base field (`BaseAlg`, prover), at the
 DEEP point in the quartic extension (`ExtAlg`, verifier), and as symbolic
 degree bounds (`DegreeAlg`, the prover's degree split). The array
 algebras hold Montgomery int32 tensors on an explicit device.
+
+This module also owns what a constraint returns and reads: the item
+wrappers `ExtVal` and `VecVal`, the column views `ColAccessor` (an
+(M, C) tensor, pointwise) and `TapAccessor` (DEEP taps), an AIR's row
+view `Rows`, the layout allocator `Alloc` and the LogUp running sum
+(`logup_running_sum`). The reference keeps the first four in its prover;
+here the prover, the constraint kernel and every AIR import them from
+this layer.
 """
 
 from __future__ import annotations
@@ -20,6 +28,25 @@ from ..core import ntt as NTT
 
 def _mont_vec(vec) -> np.ndarray:
     return F.mont_np(np.asarray(vec, dtype=np.int64)).astype(np.int32)
+
+
+class ExtVal:
+    """Marker wrapper for extension-field constraint values."""
+
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
+
+
+class VecVal:
+    """A (..., G) base-field tensor carrying G independent constraints
+    (G consecutive alpha powers on the trailing axis)."""
+
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
 
 
 class BaseAlg:
@@ -368,8 +395,6 @@ def constraint_degrees(air, pub) -> list:
 
     Returns [int | np array] per item (VecVal items give per-lane arrays);
     `pub` only supplies shapes."""
-    from ..prover.stark import ExtVal, VecVal
-
     alg = DegreeAlg()
     alg.s_pub_const = 0
     acc = DegreeCols()
@@ -392,6 +417,85 @@ class Columns:
         self.ctrl = ctrl
         self.data = data
         self.accum = accum
+
+
+class ColAccessor:
+    """cols[i] -> (M,) base column of an (M, C) tensor (pointwise)."""
+
+    def __init__(self, evals):
+        self._evals = evals
+
+    def __getitem__(self, i):
+        return self._evals[:, i]
+
+    def block(self, idx):
+        """Stacked columns: idx is a slice or index list -> (M, G)."""
+        if isinstance(idx, slice):
+            return self._evals[:, idx]
+        return self._evals[:, torch.as_tensor(idx, device=self._evals.device)]
+
+
+class TapAccessor:
+    """cols[i] -> (4,) ext tap value (DEEP evaluation)."""
+
+    def __init__(self, taps, offset_idx):
+        self._taps = taps
+        self._o = offset_idx
+
+    def __getitem__(self, i):
+        return self._taps[i, self._o]
+
+    def block(self, idx):
+        if isinstance(idx, slice):
+            return self._taps[idx, self._o]
+        return self._taps[torch.as_tensor(idx, device=self._taps.device),
+                          self._o]
+
+
+class Rows:
+    """An AIR's view of one row over `Columns`: data(i) / ctrl(i) read a
+    column, datab(idx) / ctrlb(idx) a block of them."""
+
+    def __init__(self, cols: Columns):
+        self._cols = cols
+
+    @classmethod
+    def of_trace(cls, ctrl, data) -> "Rows":
+        """The rows of raw (N, C) ctrl and data traces (`accum_trace`)."""
+        return cls(Columns(ColAccessor(ctrl), ColAccessor(data), None))
+
+    def data(self, i):
+        return self._cols.data[i]
+
+    def ctrl(self, i):
+        return self._cols.ctrl[i]
+
+    def datab(self, idx):
+        return self._cols.data.block(idx)
+
+    def ctrlb(self, idx):
+        return self._cols.ctrl.block(idx)
+
+
+class Alloc:
+    """A column layout's allocator: get() the next index, get(count) the
+    next `count` as a slice."""
+
+    def __init__(self):
+        self.n = 0
+
+    def get(self, count=1):
+        start = self.n
+        self.n += count
+        return start if count == 1 else slice(start, start + count)
+
+
+def logup_running_sum(total):
+    """(N, 4) per-row LogUp terms -> their running sum, row i the sum of
+    rows 0..i: an exact int64 prefix sum (N terms < 2^31 stay below 2^63)
+    reduced mod P once, in place of the reference's associative scan
+    (field addition is exact, so every order gives the same words)."""
+    return (total.to(torch.int64).cumsum(0) % F.P).to(F.I32)
 
 
 class Air:

@@ -4,10 +4,10 @@ Counterpart of `boundless_tpu/air/keccak.py`: the same columns, the same
 constraints in the same order (so the in-circuit verifier of
 `recursion/coproc_succinct.py` emits the reference's ROM word for word),
 over the port's algebras (`air/dsl.py`). Three translations:
-`accum_trace`'s running sum is an exact int64 prefix sum in place of the
-reference's associative scan (field addition is exact, so both give the
-same words); the witness expands each round's lanes to bits with numpy in
-place of the per-bit Python loop (the same array); and under the degree
+`accum_trace`'s running sum is the exact int64 prefix sum
+`dsl.logup_running_sum` in place of the reference's associative scan;
+the witness expands each round's lanes to bits with numpy in place of
+the per-bit Python loop (the same array); and under the degree
 algebra the public sum is the algebra's `s_pub_const`, as in
 `air/rv32im.py`, so the prover's degree plan covers this AIR. The AIR
 does not declare the generated constraint kernel (`fused_cons` is False,
@@ -55,7 +55,7 @@ import torch
 from ..core import field as F
 from ..core import ntt as NTT
 from . import dsl
-from ..prover.stark import ExtVal, VecVal
+from .dsl import ExtVal, Rows, VecVal
 
 ROUNDS = 24
 LANES = 25
@@ -90,19 +90,9 @@ def _abit(x: int, y: int, z: int) -> int:
     return LANE_BITS * (5 * y + x) + z
 
 
-class _Alloc:
-    def __init__(self):
-        self.n = 0
-
-    def get(self, count=1):
-        start = self.n
-        self.n += count
-        return start if count == 1 else slice(start, start + count)
-
-
 class DataCols:
     def __init__(self):
-        a = _Alloc()
+        a = dsl.Alloc()
         self.a = a.get(STATE_BITS)
         self.c1 = a.get(320)
         self.c2 = a.get(320)
@@ -115,7 +105,7 @@ class DataCols:
 
 class CtrlCols:
     def __init__(self):
-        a = _Alloc()
+        a = dsl.Alloc()
         self.is_first = a.get()
         self.not_last = a.get()
         self.rr = a.get(ROUNDS)  # round one-hot within the permutation
@@ -169,23 +159,6 @@ def public_logup_sum(pub: PublicValues, gamma, delta):
     return F.sum_mod(F.sum_mod(terms, 1), 0)
 
 
-class _Rows:
-    def __init__(self, cols: dsl.Columns):
-        self._cols = cols
-
-    def data(self, i):
-        return self._cols.data[i]
-
-    def ctrl(self, i):
-        return self._cols.ctrl[i]
-
-    def datab(self, idx):
-        return self._cols.data.block(idx)
-
-    def ctrlb(self, idx):
-        return self._cols.ctrl.block(idx)
-
-
 class KeccakAir(dsl.Air):
     name = "keccak"
     ctrl_cols = CC.total
@@ -210,7 +183,7 @@ class KeccakAir(dsl.Air):
         dpows = NTT.ext_powers(delta, 4)
         n = data.shape[0]
         alg = dsl.BaseAlg(data.device)
-        rows = _Rows(dsl.Columns(_Acc(ctrl), _Acc(data), None))
+        rows = Rows.of_trace(ctrl, data)
         packs, sels = _ports(alg, rows, gamma, dpows)
         out = torch.zeros((n, AC.total), dtype=F.I32, device=data.device)
         invs = F.ext_inv(torch.stack([p.expand(n, 4) for p in packs]))
@@ -219,16 +192,14 @@ class KeccakAir(dsl.Air):
             inv = F.ext_scale(invs[j], sels[j])
             out[:, AC.inv[j]: AC.inv[j] + 4] = inv
             total = F.ext_add(total, inv)
-        # exact prefix sum: N terms < 2^31 stay below 2^63 in int64
-        running = (total.to(torch.int64).cumsum(0) % F.P).to(F.I32)
-        out[:, AC.running: AC.running + 4] = running
+        out[:, AC.running: AC.running + 4] = dsl.logup_running_sum(total)
         return out
 
     def constraints(self, alg, now, nxt, globals_, pub: PublicValues):
         gamma, delta = globals_[0], globals_[1]
         dpows = alg.ext_powers(delta, 4)
-        d = _Rows(now)
-        nx = _Rows(nxt)
+        d = Rows(now)
+        nx = Rows(nxt)
         c = []
         sub = alg.sub
         one = alg.one()
@@ -400,21 +371,6 @@ def _index_tables():
                 a_y3=a_y[3], a_y4=a_y[4], b_tgt=b_tgt, a_all=a_all,
                 c_xm1=c_xm1, c_xp1=c_xp1, b_all=b_all, b_x1=b_x1,
                 b_x2=b_x2, rc_bits=rc_bits)
-
-
-class _Acc:
-    """Column accessor over a raw (N, C) tensor."""
-
-    def __init__(self, arr):
-        self._a = arr
-
-    def __getitem__(self, i):
-        return self._a[:, i]
-
-    def block(self, idx):
-        if isinstance(idx, slice):
-            return self._a[:, idx]
-        return self._a[:, torch.as_tensor(idx, device=self._a.device)]
 
 
 def _ports(alg, d, gamma, dpows):

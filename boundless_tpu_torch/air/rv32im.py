@@ -4,11 +4,11 @@ Counterpart of `boundless_tpu/air/rv32im.py`. The column layout, the LogUp
 port definitions and `Rv32imAir.constraints` are the reference's, line for
 line: they are written against the `alg` surface and numpy constants only,
 and here run on the torch algebras of `air/dsl.py`. The parts that called
-JAX directly are rewritten in torch: `public_logup_sum`, the raw-trace row
-adapter and `accum_trace` (whose running sum is an exact int64 prefix sum
-in place of the reference's associative scan: field addition is exact, so
-every scan order gives the same words). The reference's fused-kernel
-public-input hooks (`pallas_pub_pack`/`unpack`) are here as
+JAX directly are rewritten in torch: `public_logup_sum` and `accum_trace`
+(over `dsl.Rows.of_trace`, with the exact prefix sum
+`dsl.logup_running_sum` in place of the reference's associative scan).
+The reference's fused-kernel public-input hooks
+(`pallas_pub_pack`/`unpack`) are here as
 `cons_pub_pack`/`cons_pub_unpack`, for the CUDA constraint kernel
 (`air/cons_eval.py`, `kernels/cons.py`), which this AIR's proofs on the
 card run (`fused_cons`). The wire-algebra branch (`is_prog`,
@@ -29,21 +29,11 @@ import torch
 from ..core import field as F
 from ..core import ntt as NTT
 from . import dsl
-from ..prover.stark import ExtVal, VecVal
+from .dsl import ExtVal, Rows, VecVal
 
 # ---------------------------------------------------------------------------
 # Column layout
 # ---------------------------------------------------------------------------
-
-
-class _Alloc:
-    def __init__(self):
-        self.n = 0
-
-    def get(self, count=1):
-        start = self.n
-        self.n += count
-        return start if count == 1 else slice(start, start + count)
 
 
 class DataCols:
@@ -59,7 +49,7 @@ class DataCols:
 
     def __init__(self, with_m: bool = True):
         self.with_m = with_m
-        a = _Alloc()
+        a = dsl.Alloc()
         self.regs = a.get(64)  # reg k limb l at regs.start + 2k + l
         self.pc = a.get()
         self.sel = a.get(10)  # LUI AUIPC JAL JALR BR LOAD STORE ALUI ALUR ECALL
@@ -170,7 +160,7 @@ class DataCols:
 
 class CtrlCols:
     def __init__(self):
-        a = _Alloc()
+        a = dsl.Alloc()
         self.is_first = a.get()
         # trans gate: 1 on rows 0..N-Z-2 (transitions between REAL rows
         # only; Z = zk_rows(po2) blinded tail rows are fully free).
@@ -521,56 +511,6 @@ def _public_logup_sum_prog(alg, pub, gamma, delta):
 
 
 # ---------------------------------------------------------------------------
-# Row accessors
-# ---------------------------------------------------------------------------
-
-
-class _Rows:
-    """Adapter over dsl.Columns for constraints()."""
-
-    def __init__(self, cols: dsl.Columns):
-        self._cols = cols
-
-    def data(self, i):
-        return self._cols.data[i]
-
-    def ctrl(self, i):
-        return self._cols.ctrl[i]
-
-    def datab(self, idx):
-        return self._cols.data.block(idx)
-
-    def ctrlb(self, idx):
-        return self._cols.ctrl.block(idx)
-
-
-class _TraceRows:
-    """Adapter over raw (N, C) trace tensors for accum_trace()."""
-
-    def __init__(self, ctrl, data):
-        self._ctrl = ctrl
-        self._data = data
-
-    def data(self, i):
-        return self._data[:, i]
-
-    def ctrl(self, i):
-        return self._ctrl[:, i]
-
-    def datab(self, idx):
-        return _block(self._data, idx)
-
-    def ctrlb(self, idx):
-        return _block(self._ctrl, idx)
-
-
-def _block(x, idx):
-    if isinstance(idx, slice):
-        return x[:, idx]
-    return x[:, torch.as_tensor(idx, device=x.device)]
-
-
-# ---------------------------------------------------------------------------
 # The AIR
 # ---------------------------------------------------------------------------
 
@@ -642,8 +582,8 @@ class Rv32imAir(dsl.Air):
         dpows = NTT.ext_powers(delta, NUM_DPOWS)
         n = data.shape[0]
         ac = self.ac
-        packs, sels = _ports(dsl.BaseAlg(data.device), _TraceRows(ctrl, data),
-                             gamma, dpows, self.dc)
+        packs, sels = _ports(dsl.BaseAlg(data.device),
+                             Rows.of_trace(ctrl, data), gamma, dpows, self.dc)
         out = torch.zeros((n, ac.total), dtype=F.I32, device=data.device)
         total = torch.zeros((n, 4), dtype=F.I32, device=data.device)
         stacked = torch.stack([packs[p].expand(n, 4) for p in ac.PORTS])
@@ -653,9 +593,7 @@ class Rv32imAir(dsl.Air):
             out[:, ac.inv[port]: ac.inv[port] + 4] = inv
             total = F.ext_add(total,
                               inv if ac.SIGNS[port] > 0 else F.ext_neg(inv))
-        # exact prefix sum: N terms < 2^31 stay below 2^63 in int64
-        running = (total.to(torch.int64).cumsum(0) % F.P).to(F.I32)
-        out[:, ac.running: ac.running + 4] = running
+        out[:, ac.running: ac.running + 4] = dsl.logup_running_sum(total)
         return out
 
     # All heavy constraint families below are *grouped*: one op per family,
@@ -663,8 +601,8 @@ class Rv32imAir(dsl.Air):
     def constraints(self, alg, now, nxt, globals_, pub: PublicValues):
         gamma, delta = globals_[0], globals_[1]
         dpows = alg.ext_powers(delta, NUM_DPOWS)
-        d = _Rows(now)
-        nx = _Rows(nxt)
+        d = Rows(now)
+        nx = Rows(nxt)
         # Constraint classes for the blinded zk tail (prover/stark.py):
         # trans-class families carry an is_first/is_last/not_last ctrl
         # gate (0 on zk rows), so they vanish there and divide by the

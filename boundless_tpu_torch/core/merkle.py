@@ -8,7 +8,7 @@ the levels above one of at most `TREE_TOP` nodes are one launch
 (`hash_tree`); on the CPU every level runs the plain loop.
 
 A matrix may also come as its column blocks, each on its own device (a
-column-sharded proof, `parallel/mesh.py`): block k's sponge starts from
+column-sharded proof, `core/sharded.py`): block k's sponge starts from
 block k-1's (N, 24) state, so the leaves equal those of the whole rows,
 and the levels above run on the first block's device.
 """
@@ -20,8 +20,8 @@ from typing import NamedTuple
 import torch
 
 from . import poseidon2 as P2
+from . import sharded
 from ..kernels import poseidon2 as P2K
-from ..parallel import mesh
 
 
 class MerkleTree(NamedTuple):
@@ -56,11 +56,11 @@ def commit(matrix) -> MerkleTree:
     state = None
     for b in blocks[:-1]:
         state = P2K.hash_rows(b, None if state is None else
-                              mesh.move(state, b.device), P2.WIDTH)
+                              sharded.move(state, b.device), P2.WIDTH)
     cur = P2K.hash_rows(blocks[-1], None if state is None else
-                        mesh.move(state, blocks[-1].device))
+                        sharded.move(state, blocks[-1].device))
     if len(blocks) > 1:
-        cur = mesh.move(cur, blocks[0].device)
+        cur = sharded.move(cur, blocks[0].device)
     levels = [cur]
     while cur.shape[0] > P2K.TREE_TOP:
         # rows 2i and 2i+1 are adjacent: the (n/2, 16) view is [left|right]
@@ -81,7 +81,7 @@ def open_rows(tree: MerkleTree, indices):
     """
     leader = tree.blocks[0].device
     rows = [tree.blocks[0][indices]] + [
-        mesh.move(b[mesh.move(indices, b.device)], leader)
+        sharded.move(b[sharded.move(indices, b.device)], leader)
         for b in tree.blocks[1:]]
     rows = rows[0] if len(rows) == 1 else torch.cat(rows, 1)
     sibs = []

@@ -12,7 +12,7 @@ hash natively.
 
 Instance (our own deterministic parameter set, like core/poseidon2.py):
 
-  * field: BN254 scalar field r (groth16/bn254.py R)
+  * field: BN254 scalar field r (`FR`, groth16/bn254.py's R)
   * width t = 3 (rate 2, capacity 1), S-box x^5 (gcd(5, r-1) = 1)
   * R_F = 8 full rounds (4 + 4), R_P = 57 partial rounds
     (Poseidon-paper sizing for t = 3, alpha = 5, 128-bit security)
@@ -40,7 +40,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from ..groth16.bn254 import R as FR
+# the BN254 scalar field order r
+FR = 21888242871839275222246405745257275088548364400416034343698204186575808495617
 
 T = 3
 RATE = 2

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 
-# Curve: y^2 = x^3 + 3 over F_p; r = scalar field order.
+from ..core.poseidon_bn254 import FR as R  # r = scalar field order
+
+# Curve: y^2 = x^3 + 3 over F_p.
 P = 21888242871839275222246405745257275088696311157297823662689037894645226208583
-R = 21888242871839275222246405745257275088548364400416034343698204186575808495617
 B = 3
 G1_GEN = (1, 2)
 

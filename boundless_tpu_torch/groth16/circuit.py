@@ -40,7 +40,8 @@ import torch
 from ..core import field as FBB
 from ..core import fri
 from ..core import poseidon_bn254 as P254
-from ..prover.stark import CHECK_COLS, CHECK_SPLIT, ExtVal, VecVal
+from ..air.dsl import ExtVal, VecVal
+from ..prover.stark import CHECK_COLS, CHECK_SPLIT
 from . import r1cs
 from .r1cs import BB, BBOps, Builder, LC, _lc_add, _lc_scale
 

@@ -39,6 +39,7 @@ import torch
 
 from . import limbs as LB
 from .bn254 import G1, P as Q_INT, R
+from ..kernels import msm as MK
 
 WINDOW_BITS = 8
 WINDOWS = 32  # ceil(254 / 8)
@@ -347,12 +348,12 @@ def plain_pippenger(points: torch.Tensor, pr: Prep) -> torch.Tensor:
 def msm(points: Sequence[G1], scalars: Sequence[int], device) -> G1:
     """sum_i s_i P_i on `device`: the CUDA Pippenger on the card, the plain
     version on the CPU."""
-    from ..kernels import msm as MK
-
     if len(points) != len(scalars):
         raise ValueError(f"{len(points)} points but {len(scalars)} scalars")
     if len(points) == 0:
         return G1.infinity()
     pts = device_points(points, device)
-    return point_from_words(MK.pippenger(pts, prep(scalars, device))
-                            .cpu().numpy())
+    pr = prep(scalars, device)
+    words = (plain_pippenger(pts, pr) if pts.device.type == "cpu"
+             else MK.pippenger(pts, pr))
+    return point_from_words(words.cpu().numpy())

@@ -67,7 +67,7 @@ import threading
 import torch
 
 from ..air import cons_eval as CE
-from ..air.dsl import BaseAlg, Columns
+from ..air.dsl import BaseAlg, ColAccessor, Columns, ExtVal, VecVal
 from ..core import field as F
 from ..core.ntt import INV_RATE
 from . import build
@@ -461,12 +461,10 @@ def blocks_per_sm(air) -> int:
 def evaluate_plain(air, ctrl_evals, data_evals, accum_evals, globals_, pub):
     """Plain torch rows: the eager `constraints` over the grid, stacked to
     (K, M) in the order of the program's `kinds`."""
-    from ..prover.stark import ExtVal, VecVal, _ColAccessor
-
     m = data_evals.shape[0]
     evals = (ctrl_evals, data_evals, accum_evals)
-    now = Columns(*(_ColAccessor(e) for e in evals))
-    nxt = Columns(*(_ColAccessor(torch.roll(e, -INV_RATE, 0)) for e in evals))
+    now = Columns(*(ColAccessor(e) for e in evals))
+    nxt = Columns(*(ColAccessor(torch.roll(e, -INV_RATE, 0)) for e in evals))
     cons = air.constraints(BaseAlg(data_evals.device), now, nxt, globals_,
                            pub)
     rows = []

@@ -2,11 +2,11 @@
 
 `pippenger(points, prep)` sums the prepped entries (`groth16/msm_device.
 prep`) over an (n, 16) int32 tensor of affine Montgomery points and
-returns the (24,) Jacobian words of the result. On a CUDA tensor it
-launches the kernel (four launches in one call: chunks, buckets, bit
-slices, windows) or raises; on a CPU tensor it runs the plain version
-(`msm_device.plain_pippenger`). There is no fallback from the card to the
-plain or the host MSM.
+returns the (24,) Jacobian words of the result. It takes CUDA tensors
+only and launches the kernel (four launches in one call: chunks, buckets,
+bit slices, windows) or raises; the CPU route, the plain version
+`msm_device.plain_pippenger`, is its caller's (`msm_device.msm`). There
+is no fallback from the card to the plain or the host MSM.
 
 `LAUNCHES` counts calls that launched the kernel.
 """
@@ -50,10 +50,6 @@ def pippenger(points: torch.Tensor, prep) -> torch.Tensor:
     """sum of the prepped entries -> (24,) int32 words (Jacobian X, Y, Z
     Montgomery limbs) on the points' device."""
     global LAUNCHES
-    if points.device.type == "cpu":
-        from ..groth16 import msm_device
-
-        return msm_device.plain_pippenger(points, prep)
     if points.dim() != 2 or points.shape[1] != 16:
         raise ValueError(f"points has shape {tuple(points.shape)}")
     args = (("points", points, torch.int32), ("idx", prep.idx, torch.int32),

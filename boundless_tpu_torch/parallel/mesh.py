@@ -28,10 +28,8 @@ the accumulator, the quotient, the check commit, FRI and the openings
 deterministic given the trace (the blinding sits in the witness), every
 split falls on a sponge block boundary, and the weighted sums are exact.
 
-`MOVED_BYTES` counts the bytes a proof moves between the positions of its
-group (to and from the leader, and the sponge state from shard to shard),
-whether or not the two positions name the same card; placing the traces
-(`shard_fn`) is not counted.
+The column-block type, `column_split`, `move` and its `MOVED_BYTES`
+count live below the prover, in `core/sharded.py`.
 """
 
 from __future__ import annotations
@@ -43,10 +41,8 @@ import threading
 import numpy as np
 import torch
 
-from ..core.poseidon2 import RATE  # every shard but the last is a multiple
-
-MOVED_BYTES = 0
-_MOVED_LOCK = threading.Lock()  # dp groups prove from threads
+from ..core import sharded
+from ..prover import stark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,73 +81,6 @@ def make_mesh(n_devices=None, dp=None, devices=None) -> Mesh:
     return Mesh(grid)
 
 
-def column_split(c: int, tp: int) -> list:
-    """[(start, stop), ...]: C columns cut into at most tp contiguous
-    blocks in column order, all of one width that is a multiple of RATE
-    but the last (narrower), the width as small as that allows; no block
-    is empty (C = 392, tp = 2: 208 | 184; C = 40, tp = 3: 16 | 16 | 8)."""
-    if tp < 1:
-        raise ValueError(f"tp must be at least 1, got {tp}")
-    width = RATE * -(-c // (RATE * tp))
-    return [(a, min(a + width, c)) for a in range(0, c, width)]
-
-
-def check_group(devices) -> None:
-    """Raise ValueError unless the devices are all of one type: a group
-    that mixed the CPU with a card would prove part of a segment on the
-    CPU."""
-    kinds = {torch.device(d).type for d in devices}
-    if len(kinds) > 1:
-        raise ValueError(f"a tp group mixes device types {sorted(kinds)}: "
-                         f"{[str(d) for d in devices]}")
-
-
-@dataclasses.dataclass(frozen=True)
-class ShardedTrace:
-    """A trace group's (N, C) columns as contiguous blocks in column order,
-    block k on the group's device k; blocks[0]'s device is the leader."""
-
-    blocks: tuple
-
-    def __post_init__(self):
-        check_group(b.device for b in self.blocks)
-        if not self.blocks or len({b.shape[0] for b in self.blocks}) != 1:
-            raise ValueError("a sharded trace needs blocks of equal rows")
-        if any(b.shape[1] % RATE for b in self.blocks[:-1]):
-            raise ValueError(f"every block but the last must be a multiple "
-                             f"of {RATE} columns: "
-                             f"{[b.shape[1] for b in self.blocks]}")
-
-    @classmethod
-    def of(cls, trace, devices) -> "ShardedTrace":
-        """Cut `trace` by `column_split` over `devices` (empty blocks
-        dropped: their devices get no shard)."""
-        devices = [torch.device(d) for d in devices]
-        return cls(tuple(trace[:, a:b].to(devices[k]).contiguous()
-                         for k, (a, b) in enumerate(
-                             column_split(trace.shape[1], len(devices)))))
-
-    @property
-    def leader(self) -> torch.device:
-        return self.blocks[0].device
-
-    def gather(self):
-        """The whole (N, C) trace on the leader."""
-        if len(self.blocks) == 1:
-            return self.blocks[0]
-        return torch.cat([self.blocks[0]] + [move(b, self.leader)
-                                             for b in self.blocks[1:]], 1)
-
-
-def move(x, device):
-    """x on `device`, counted in MOVED_BYTES: a copy between two positions
-    of a tp group (no copy when both name one device)."""
-    global MOVED_BYTES
-    with _MOVED_LOCK:
-        MOVED_BYTES += x.numel() * x.element_size()
-    return x.to(device, non_blocking=True)
-
-
 def _unbatch(pub_b, count: int) -> list:
     """Per-segment publics from a list, a tensor with a leading batch axis
     or a dataclass of such tensors."""
@@ -175,8 +104,8 @@ def _to(pub, device):
 def _shard(trace, group):
     """`trace` as a ShardedTrace over `group` (left as it is once it is
     one)."""
-    return trace if isinstance(trace, ShardedTrace) else \
-        ShardedTrace.of(trace, group)
+    return trace if isinstance(trace, sharded.ShardedTrace) else \
+        sharded.ShardedTrace.of(trace, group)
 
 
 def shard_batched_prover(air, po2, ps, mesh: Mesh):
@@ -188,12 +117,10 @@ def shard_batched_prover(air, po2, ps, mesh: Mesh):
     each group). data_b: (B, N, C) tensor or B (N, C) tensors; pub_b: B
     publics, or one batched along a leading axis; ctrl: the control trace
     every segment shares (None: the AIR's own, built on each leader)."""
-    from ..prover import stark
-
     dp, _ = mesh.devices.shape
     groups = [list(mesh.devices[g]) for g in range(dp)]
     for group in groups:
-        check_group(group)
+        sharded.check_group(group)
 
     def shard_fn(data_b, pub_b, ctrl):
         count = len(data_b)

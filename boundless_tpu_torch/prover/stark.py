@@ -35,11 +35,13 @@ import torch
 
 from ..core import bbmm
 from ..core import field as F
-from ..core import fri, merkle
+from ..core import fri, merkle, sharded
 from ..core import ntt as NTT
 from ..core.ntt import _powers as _np_powers
-from ..air.dsl import Air, BaseAlg, ExtAlg, Columns
-from ..parallel import mesh
+from ..air import cons_eval
+from ..air.dsl import (Air, BaseAlg, ColAccessor, Columns, ExtAlg, ExtVal,
+                       TapAccessor, VecVal, constraint_degrees)
+from ..kernels import cons as CK
 from ..utils import profiling
 
 INV_RATE = 4
@@ -100,12 +102,14 @@ def _tensor(a: np.ndarray, device):
 
 def _blocks(trace) -> tuple:
     """A trace group's column blocks: a ShardedTrace's, or the one tensor."""
-    return trace.blocks if isinstance(trace, mesh.ShardedTrace) else (trace,)
+    return (trace.blocks if isinstance(trace, sharded.ShardedTrace)
+            else (trace,))
 
 
 def _whole(trace):
     """A trace group's whole (N, C) matrix on its leader."""
-    return trace.gather() if isinstance(trace, mesh.ShardedTrace) else trace
+    return (trace.gather() if isinstance(trace, sharded.ShardedTrace)
+            else trace)
 
 
 def _lde_commit(trace, commit_expand: int, suite):
@@ -133,31 +137,13 @@ def _lde_commit(trace, commit_expand: int, suite):
             evals = torch.empty((ev.shape[0], sum(b.shape[1] for b in blocks)),
                                 dtype=F.I32, device=leader)
         width = ev.shape[1]
-        evals[:, off:off + width] = ev if k == 0 else mesh.move(ev, leader)
+        evals[:, off:off + width] = (ev if k == 0
+                                     else sharded.move(ev, leader))
         off += width
         del ev
     tree = suite.commit(committed[0] if len(committed) == 1
                         else tuple(committed))
     return tuple(coeffs), evals, tree
-
-
-class ExtVal:
-    """Marker wrapper for extension-field constraint values."""
-
-    __slots__ = ("v",)
-
-    def __init__(self, v):
-        self.v = v
-
-
-class VecVal:
-    """A (..., G) base-field tensor carrying G independent constraints
-    (G consecutive alpha powers on the trailing axis)."""
-
-    __slots__ = ("v",)
-
-    def __init__(self, v):
-        self.v = v
 
 
 def combine_constraints(cons, alpha, at_deep: bool, keep=None, powers=None):
@@ -252,8 +238,6 @@ def _item_degrees(air, pub):
     """Per-constraint-item degree bounds and the zk class list (cached)."""
     with _DEGREES_LOCK:
         if "_item_degrees" not in air.__dict__:
-            from ..air.dsl import constraint_degrees
-
             air.__dict__["_item_degrees"] = [
                 int(np.max(np.atleast_1d(d)))
                 for d in constraint_degrees(air, pub)]
@@ -366,39 +350,6 @@ def _deep_points(z, n: int):
 # ---------------------------------------------------------------------------
 
 
-class _ColAccessor:
-    """cols[i] -> (M,) base tensor (pointwise)."""
-
-    def __init__(self, evals):
-        self._evals = evals
-
-    def __getitem__(self, i):
-        return self._evals[:, i]
-
-    def block(self, idx):
-        """Stacked columns: idx is a slice or index list -> (M, G)."""
-        if isinstance(idx, slice):
-            return self._evals[:, idx]
-        return self._evals[:, torch.as_tensor(idx, device=self._evals.device)]
-
-
-class _TapAccessor:
-    """cols[i] -> (4,) ext tap value (DEEP evaluation)."""
-
-    def __init__(self, taps, offset_idx):
-        self._taps = taps
-        self._o = offset_idx
-
-    def __getitem__(self, i):
-        return self._taps[i, self._o]
-
-    def block(self, idx):
-        if isinstance(idx, slice):
-            return self._taps[idx, self._o]
-        return self._taps[torch.as_tensor(idx, device=self._taps.device),
-                          self._o]
-
-
 def _fused_route(air, device) -> bool:
     """The fused constraint-kernel route runs on the card, for an AIR that
     declares the kernel (the reference's `pallas_cons_ok` gate); every
@@ -439,9 +390,6 @@ def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
         return NTT.coset_interpolate(q_ev, expand=1)
 
     if fused:
-        from ..air import cons_eval
-        from ..kernels import cons as CK
-
         kinds = cons_eval.trace(air).kinds
         classes = {}
         for _, jobs in plan:
@@ -467,8 +415,8 @@ def _quotient_coeffs(air, po2: int, evals, globals_, pub, alpha,
             return None if ev is None else torch.roll(ev, -expand, dims=0)
 
         subs = [sub(e) for e in evals]
-        now = Columns(*(_ColAccessor(e) for e in subs))
-        nxt = Columns(*(_ColAccessor(nxt_of(e)) for e in subs))
+        now = Columns(*(ColAccessor(e) for e in subs))
+        nxt = Columns(*(ColAccessor(nxt_of(e)) for e in subs))
         cons = air.constraints(BaseAlg(dev), now, nxt, globals_, pub)
         return interpolate_parts(expand, (
             (combine_constraints(cons, alpha, at_deep=False, keep=keep,
@@ -489,8 +437,8 @@ def prove(air: Air, data_trace, pub, po2: int,
     `pub`: public-values dataclass of Montgomery tensors, bound into the
     transcript first. `ctrl_trace`: required iff `air.ctrl_dynamic`.
 
-    `data_trace` and `ctrl_trace` may each be a `mesh.ShardedTrace`, its
-    columns spread over a tp group's devices (`parallel/mesh.py`): each
+    `data_trace` and `ctrl_trace` may each be a `sharded.ShardedTrace`, its
+    columns spread over a tp group's devices (`core/sharded.py`): each
     shard's LDE, leaf hash (chained in column order), DEEP taps and part
     of the DEEP weighted sums run on the shard's device, and the rest on
     the leader, the data's first device, which holds `pub`. The proof is
@@ -500,7 +448,7 @@ def prove(air: Air, data_trace, pub, po2: int,
     shape = (data_blocks[0].shape[0], sum(b.shape[1] for b in data_blocks))
     assert shape == (n, air.data_cols)
     dev = data_blocks[0].device
-    if isinstance(ctrl_trace, mesh.ShardedTrace) and \
+    if isinstance(ctrl_trace, sharded.ShardedTrace) and \
             ctrl_trace.leader != dev:
         raise ValueError(f"ctrl's leader {ctrl_trace.leader} is not the "
                          f"data's {dev}")
@@ -579,10 +527,10 @@ def _prove(air, data_trace, pub, po2, ps, ctrl_trace, dev) -> SegmentProof:
             own device, joined in column order on the leader."""
             parts = []
             for k, c in enumerate(coeffs):
-                at = (z_, zg) if k == 0 else (mesh.move(z_, c.device),
-                                              mesh.move(zg, c.device))
+                at = (z_, zg) if k == 0 else (sharded.move(z_, c.device),
+                                              sharded.move(zg, c.device))
                 t = torch.stack([NTT.eval_poly_ext(c, x) for x in at], dim=1)
-                parts.append(t if k == 0 else mesh.move(t, dev))
+                parts.append(t if k == 0 else sharded.move(t, dev))
             return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
         taps_ctrl = taps_of(ctrl_coeffs) if has_ctrl else None
@@ -685,8 +633,8 @@ def _trace_sums(trace_blocks, weights):
     for k, (blocks, rows) in by_pos.items():
         w = torch.cat(rows, 0)
         part = bbmm.bb_weighted_sum_blocks(
-            blocks, w if k == 0 else mesh.move(w, blocks[0].device))
-        part = part if k == 0 else mesh.move(part, weights.device)
+            blocks, w if k == 0 else sharded.move(w, blocks[0].device))
+        part = part if k == 0 else sharded.move(part, weights.device)
         total = part if total is None else F.add(total, part)
     return total
 
@@ -734,9 +682,9 @@ def verify(air: Air, proof: SegmentProof, pub, po2: int,
     # --- ALI check at z ---
     def taps_cols(o):
         return Columns(
-            ctrl=_TapAccessor(proof.taps_ctrl, o) if has_ctrl else None,
-            data=_TapAccessor(proof.taps_data, o),
-            accum=_TapAccessor(proof.taps_accum, o) if has_accum else None)
+            ctrl=TapAccessor(proof.taps_ctrl, o) if has_ctrl else None,
+            data=TapAccessor(proof.taps_data, o),
+            accum=TapAccessor(proof.taps_accum, o) if has_accum else None)
 
     cons = air.constraints(ExtAlg(dev), taps_cols(0), taps_cols(1),
                            globals_, pub)

@@ -2,11 +2,11 @@
 
 Counterpart of `boundless_tpu/recursion/air.py`: the same columns and
 constraints over the port's algebras (`air/dsl.py`), with `accum_trace`'s
-running sum as an exact int64 prefix sum in place of the reference's
-associative scan (field addition is exact, so every order gives the same
-words). The AIR does not declare the generated constraint kernel
-(`fused_cons` is False, as the reference's `pallas_cons_ok` is unset), so
-its quotient takes the prover's degree-split route on the card too.
+running sum the exact int64 prefix sum `dsl.logup_running_sum` in place
+of the reference's associative scan. The AIR does not declare the
+generated constraint kernel (`fused_cons` is False, as the reference's
+`pallas_cons_ok` is unset), so its quotient takes the prover's
+degree-split route on the card too.
 
 Equivalent of the reference's recursion circuit
 (`risc0-circuit-recursion-sys`, SURVEY.md §2.4; recursion-VM programs are
@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..air import dsl
+from ..air.dsl import ExtVal, Rows, VecVal
 from ..core import field as F
 from ..core import ntt as NTT
 from . import vm
@@ -84,35 +85,6 @@ def _ports(alg, row, gamma, dpows):
     return pack_w, packs_r, row.ctrl(CC.mcount), ens
 
 
-class _Rows:
-    def __init__(self, cols: dsl.Columns):
-        self._cols = cols
-
-    def data(self, i):
-        return self._cols.data[i]
-
-    def ctrl(self, i):
-        return self._cols.ctrl[i]
-
-    def datab(self, idx):
-        return self._cols.data.block(idx)
-
-    def ctrlb(self, idx):
-        return self._cols.ctrl.block(idx)
-
-
-class _TraceRows:
-    def __init__(self, ctrl, data):
-        self._ctrl = ctrl
-        self._data = data
-
-    def data(self, i):
-        return self._data[:, i]
-
-    def ctrl(self, i):
-        return self._ctrl[:, i]
-
-
 # ---------------------------------------------------------------------------
 # The AIR
 # ---------------------------------------------------------------------------
@@ -133,7 +105,7 @@ class RecursionAir(dsl.Air):
         n = data.shape[0]
         alg = dsl.BaseAlg(data.device)
         pack_w, packs_r, mcount, ens = _ports(
-            alg, _TraceRows(ctrl, data), gamma, dpows)
+            alg, Rows.of_trace(ctrl, data), gamma, dpows)
         stacked = torch.stack([p.expand(n, 4) for p in [pack_w] + packs_r])
         invs = F.ext_inv(stacked)  # (4, N, 4) one batched inversion
         out = torch.zeros((n, AC.total), dtype=F.I32, device=data.device)
@@ -144,15 +116,13 @@ class RecursionAir(dsl.Air):
             inr = F.ext_scale(invs[p + 1], ens[p])
             out[:, AC.inr[p]] = inr
             total = F.ext_sub(total, inr)
-        # exact prefix sum: N terms < 2^31 stay below 2^63 in int64
-        running = (total.to(torch.int64).cumsum(0) % F.P).to(F.I32)
-        out[:, AC.running] = running
+        out[:, AC.running] = dsl.logup_running_sum(total)
         return out
 
     def constraints(self, alg, now, nxt, globals_, pub):
         gamma, delta = globals_[0], globals_[1]
         dpows = alg.ext_powers(delta, NUM_DPOWS)
-        d = _Rows(now)
+        d = Rows(now)
         c = []
         m, add, sub = alg.mul, alg.add, alg.sub
         gm, ga, gs = alg.gmul, alg.gadd, alg.gsub
@@ -211,7 +181,7 @@ class RecursionAir(dsl.Air):
 
         # ---- Poseidon2 state machine ----
         st = d.datab(slice(DC.st.start, DC.st.stop))      # (M, 24) pre
-        stn = _Rows(nxt).datab(slice(DC.st.start, DC.st.stop))  # post
+        stn = Rows(nxt).datab(slice(DC.st.start, DC.st.stop))  # post
         x3 = d.datab(slice(DC.x3.start, DC.x3.stop))
         kblk = d.ctrlb(slice(CC.K.start, CC.K.stop))
 
@@ -299,14 +269,10 @@ def _bcast_add(alg, scalar, group):
 
 
 def dsl_ext(alg, v):
-    from ..prover.stark import ExtVal
-
     return ExtVal(v)
 
 
 def dsl_vec(alg, v):
-    from ..prover.stark import VecVal
-
     return VecVal(v)
 
 

@@ -44,6 +44,7 @@ import torch
 from ..core import field as F
 from ..core import fri
 from ..core import poseidon2_np as P2NP
+from ..air.dsl import Columns, ExtVal, VecVal
 from . import vm
 
 P = F.P
@@ -299,21 +300,12 @@ class _WireTaps:
         return [self._taps[i][self._pt] for i in idx]
 
 
-class _WireColumns:
-    def __init__(self, ctrl, data, accum):
-        self.ctrl = ctrl
-        self.data = data
-        self.accum = accum
-
-
 def combine_constraints_prog(p: vm.Prog, cons, alpha: int,
                              keep=None) -> int:
     """Mirror of stark.combine_constraints at the DEEP point, on wires.
 
     `keep` (blinding divisor classes): only flagged items enter the sum;
     α-power indices are assigned over the FULL list either way."""
-    from ..prover.stark import ExtVal, VecVal
-
     sizes = []
     for c in cons:
         sizes.append(len(c.v) if isinstance(c, VecVal) else 1)
@@ -458,11 +450,11 @@ class StarkVerifier:
         taps_ctrl_w = next(gi) if has_ctrl else None
         taps_data_w = next(gi)
         taps_accum_w = next(gi) if has_accum else None
-        now = _WireColumns(
+        now = Columns(
             _WireTaps(taps_ctrl_w, 0) if has_ctrl else None,
             _WireTaps(taps_data_w, 0),
             _WireTaps(taps_accum_w, 0) if has_accum else None)
-        nxt = _WireColumns(
+        nxt = Columns(
             _WireTaps(taps_ctrl_w, 1) if has_ctrl else None,
             _WireTaps(taps_data_w, 1),
             _WireTaps(taps_accum_w, 1) if has_accum else None)

@@ -53,6 +53,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..air.dsl import Alloc
 from ..core import field as F
 from ..core import poseidon2 as P2
 from ..core.poseidon2_np import M4
@@ -78,21 +79,11 @@ K_CC = 7
 K_PMULW = 8    # [8:12] effective pick-component weights
 
 
-class _Alloc:
-    def __init__(self):
-        self.n = 0
-
-    def get(self, k: int = 1):
-        s = slice(self.n, self.n + k) if k > 1 else self.n
-        self.n += k
-        return s
-
-
 class CtrlCols:
     """ROM layout (the circuit's ctrl group)."""
 
     def __init__(self):
-        a = _Alloc()
+        a = Alloc()
         self.sel = a.get(NOPS)
         self.is_first = a.get()
         self.not_last = a.get()
@@ -113,7 +104,7 @@ class DataCols:
     """Per-row data group layout."""
 
     def __init__(self):
-        a = _Alloc()
+        a = Alloc()
         self.in1 = a.get(4)
         self.in2 = a.get(4)
         self.in3 = a.get(4)
@@ -126,7 +117,7 @@ class DataCols:
 
 class AccumCols:
     def __init__(self):
-        a = _Alloc()
+        a = Alloc()
         self.inw = a.get(4)
         self.inr = [a.get(4) for _ in range(3)]
         self.running = a.get(4)

@@ -15,8 +15,9 @@ span closes, and only while tracing is on.
 
 The newest `MAX_RECORDS` closed spans are kept in memory (`records()`,
 `export_chrome(path)` as Chrome trace events), and each closed span adds
-its seconds to `cluster/metrics.REGISTRY.histogram("span_seconds",
-span=name)`: the registry the cluster's `/metrics` exposes.
+its seconds to `utils/metrics.REGISTRY.histogram("span_seconds",
+span=name)`: the registry the cluster's `/metrics` exposes
+(`cluster/metrics.REGISTRY` is the same object).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import time
 
 import torch
 
-from ..cluster import metrics as M
+from . import metrics as M
 
 MAX_RECORDS = 1 << 16
 

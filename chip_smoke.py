@@ -2788,6 +2788,7 @@ def phase_coproc(dev, cons_check):
         raise AssertionError("batch digests differ from the ecall claims")
     # the same batch by columns on a (1, 2) mesh that names the card twice
     from boundless_tpu_torch.air import keccak as K
+    from boundless_tpu_torch.core import sharded as S
     from boundless_tpu_torch.parallel import mesh as M
 
     kdata, kpub, _ = K.witness(ex.keccak_states, KEC_PO2)
@@ -2812,7 +2813,7 @@ def phase_coproc(dev, cons_check):
         raise AssertionError(f"[coproc] the tp-2 KeccakAir proof skipped a "
                              f"kernel: {tp_launches}")
     say("coproc", stage="keccak_proof guest tp2", vs_single="equal",
-        data_shards="|".join(str(b - a) for a, b in M.column_split(
+        data_shards="|".join(str(b - a) for a, b in S.column_split(
             K.AIR.data_cols, 2)), tp_s=f"{t_tp:.3f}",
         single_s=f"{t_single:.3f}", max_memory_allocated=peaks[str(dev)],
         single_max_memory_allocated=single_peak[str(dev)], moved_bytes=moved,
@@ -4204,21 +4205,21 @@ def mesh_run(fn, placed, devices):
     """One proving call on a mesh with the counts zeroed just before and
     read right after: (proofs, wall s, launches, moved bytes, the chained
     sponge launches, each device's peak allocated bytes)."""
-    from boundless_tpu_torch.parallel import mesh as M
+    from boundless_tpu_torch.core import sharded as S
 
     devices = sorted(set(devices), key=str)
     for d in devices:
         torch.cuda.synchronize(d)
         torch.cuda.reset_peak_memory_stats(d)
     zero_counts()
-    M.MOVED_BYTES = 0
+    S.MOVED_BYTES = 0
     with RecordChained() as chained:
         t0 = time.perf_counter()
         proofs = fn(*placed)
         for d in devices:
             torch.cuda.synchronize(d)
         wall = time.perf_counter() - t0
-    return (proofs, wall, all_counts(), M.MOVED_BYTES, chained.seen,
+    return (proofs, wall, all_counts(), S.MOVED_BYTES, chained.seen,
             {str(d): torch.cuda.max_memory_allocated(d) for d in devices})
 
 
@@ -4233,6 +4234,7 @@ def phase_mesh(dev):
     moved between the tp group's positions and the chained leaf-hash
     launches."""
     from boundless_tpu_torch.core import field as F
+    from boundless_tpu_torch.core import sharded as S
     from boundless_tpu_torch.parallel import mesh as M
     from boundless_tpu_torch.prover import stark
     from boundless_tpu_torch.zkvm import guests, prove, witness
@@ -4308,7 +4310,7 @@ def phase_mesh(dev):
                                         "bb_weighted_sum")) <= 0:
             raise AssertionError(f"[mesh] {name} skipped a kernel: "
                                  f"{tp_launches}")
-        widths = [b - a for a, b in M.column_split(air.data_cols,
+        widths = [b - a for a, b in S.column_split(air.data_cols,
                                                    tm.devices.shape[1])]
         # the data group's leaf hash: every shard but the last returns the
         # whole state, every shard but the first starts from one
@@ -4323,7 +4325,7 @@ def phase_mesh(dev):
             cards=len({str(d) for d in tm.devices.flat}),
             segments=len(got), vs_stark_prove="equal",
             data_shards="|".join(map(str, widths)),
-            ctrl_shards="|".join(str(b - a) for a, b in M.column_split(
+            ctrl_shards="|".join(str(b - a) for a, b in S.column_split(
                 air.ctrl_cols, tm.devices.shape[1])),
             tp_s=",".join(f"{t:.3f}" for t in t_tp),
             single_s=f"{t_single:.3f},{t_single2:.3f}",

@@ -36,6 +36,7 @@ from boundless_tpu.prover import stark as JSTARK
 from boundless_tpu_torch.core import bbmm as B
 from boundless_tpu_torch.core import ntt as NTT
 from boundless_tpu_torch.kernels import bbmm as BK
+from boundless_tpu_torch.air import dsl
 from boundless_tpu_torch.prover import stark
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -290,8 +291,8 @@ def combine_case(m=70, seed=9):
     const = rng.integers(0, JF.P, size=(1,), dtype=np.int64)
     alpha = rng.integers(0, JF.P, size=(4,), dtype=np.int64)
     t = torch.from_numpy(big.astype(np.int32))
-    port = [stark.VecVal(t[:, 2:7]), t[:, 9], stark.ExtVal(
-        torch.from_numpy(ext.astype(np.int32))), stark.VecVal(
+    port = [dsl.VecVal(t[:, 2:7]), t[:, 9], dsl.ExtVal(
+        torch.from_numpy(ext.astype(np.int32))), dsl.VecVal(
         torch.from_numpy(vec3.astype(np.int32))),
         torch.from_numpy(const.astype(np.int32))]
 

@@ -21,7 +21,8 @@ import torch
 
 from boundless_tpu.prover import stark as JSTARK
 from boundless_tpu_torch.air import cons_eval as CE
-from boundless_tpu_torch.air.dsl import BaseAlg, Columns
+from boundless_tpu_torch.air.dsl import (BaseAlg, ColAccessor, Columns, ExtVal,
+                                         VecVal)
 from boundless_tpu_torch.air.rv32im import Rv32imAir
 from boundless_tpu_torch.core import field as F
 from boundless_tpu_torch.core import ntt as NTT
@@ -109,13 +110,13 @@ def test_fused_combine_equals_jax_combine_constraints(grid):
     """The same constraint values on the rv32i grid, α-combined by the
     port's fused route and by the JAX package's `combine_constraints`."""
     air, evals, globals_, pub = grid["rv32i"]
-    acc = stark._ColAccessor
+    acc = ColAccessor
     cons = air.constraints(BaseAlg(), Columns(*(acc(e) for e in evals)),
                            Columns(*(acc(torch.roll(e, -4, 0))
                                      for e in evals)), globals_, pub)
     j = lambda x: jnp.asarray(x.numpy().astype(np.uint32))  # noqa: E731
-    jcons = [JSTARK.VecVal(j(c.v)) if isinstance(c, stark.VecVal) else
-             JSTARK.ExtVal(j(c.v)) if isinstance(c, stark.ExtVal) else j(c)
+    jcons = [JSTARK.VecVal(j(c.v)) if isinstance(c, VecVal) else
+             JSTARK.ExtVal(j(c.v)) if isinstance(c, ExtVal) else j(c)
              for c in cons]
     alpha = F.ext(np.arange(4) + 7)
     rows = CK.evaluate(air, *evals, globals_, pub)

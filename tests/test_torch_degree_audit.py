@@ -22,9 +22,8 @@ from boundless_tpu.air.dsl import Air as JAir
 from boundless_tpu.core import field as JF
 from boundless_tpu.prover import stark as JSTARK
 from boundless_tpu_torch.air import degree as DA
-from boundless_tpu_torch.air.dsl import Air
+from boundless_tpu_torch.air.dsl import Air, ExtVal, VecVal
 from boundless_tpu_torch.core import field as F
-from boundless_tpu_torch.prover import stark
 from boundless_tpu_torch.recursion import air as rair
 from boundless_tpu_torch.recursion import vm
 
@@ -66,7 +65,7 @@ class _VecAir(Air):
         g = now.data.block(slice(0, 8))  # (M, 8)
         cube = alg.gmul(alg.gmul(g, g), g)
         e = F.ext_scale(globals_[0].expand(g.shape[:1] + (4,)), now.data[0])
-        return [stark.VecVal(cube), stark.ExtVal(e)]
+        return [VecVal(cube), ExtVal(e)]
 
 
 class _JVecAir(JAir):

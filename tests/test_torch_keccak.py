@@ -107,12 +107,12 @@ def _constraint_values(data, states, gl):
     ctrl = K.AIR.ctrl_trace(N)
     dt = F.fp(data)
     acc = K.AIR.accum_trace(ctrl, dt, gl)
-    now = dsl.Columns(*(stark._ColAccessor(e) for e in (ctrl, dt, acc)))
-    nxt = dsl.Columns(*(stark._ColAccessor(torch.roll(e, -1, 0))
+    now = dsl.Columns(*(dsl.ColAccessor(e) for e in (ctrl, dt, acc)))
+    nxt = dsl.Columns(*(dsl.ColAccessor(torch.roll(e, -1, 0))
                         for e in (ctrl, dt, acc)))
     cons = K.AIR.constraints(dsl.BaseAlg(), now, nxt, gl,
                              K.PublicValues(states=F.fp(states)))
-    return [c.v if isinstance(c, (stark.ExtVal, stark.VecVal)) else c
+    return [c.v if isinstance(c, (dsl.ExtVal, dsl.VecVal)) else c
             for c in cons]
 
 

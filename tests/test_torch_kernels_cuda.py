@@ -30,6 +30,7 @@ from boundless_tpu_torch.kernels import bbmm as BK
 from boundless_tpu_torch.kernels import cons as CK
 from boundless_tpu_torch.kernels import build
 from boundless_tpu_torch.kernels import ntt as NK
+from boundless_tpu_torch.air import dsl
 from boundless_tpu_torch.prover import stark
 from boundless_tpu_torch.zkvm import guests, prove
 from boundless_tpu_torch.zkvm import witness as W
@@ -222,9 +223,9 @@ def test_weighted_sum_blocks_and_split_equal_plain(dev):
     against the plain version."""
     m = 5000
     big = words((m, 12), 1, dev)
-    cons = [stark.VecVal(big[:, 2:7]), big[:, 9],
-            stark.ExtVal(words((m, 4), 2, dev)),
-            stark.VecVal(words((m, 3), 3, dev)), words((1,), 4, dev)]
+    cons = [dsl.VecVal(big[:, 2:7]), big[:, 9],
+            dsl.ExtVal(words((m, 4), 2, dev)),
+            dsl.VecVal(words((m, 3), 3, dev)), words((1,), 4, dev)]
     sizes = [5, 1, 1, 3, 1]
     apows = NTT.ext_powers(words((4,), 5, dev), sum(sizes))
     before = BK.LAUNCHES

@@ -26,6 +26,7 @@ from boundless_tpu_torch.core import bbmm
 from boundless_tpu_torch.core import field as F
 from boundless_tpu_torch.core import merkle
 from boundless_tpu_torch.core import poseidon2 as P2
+from boundless_tpu_torch.core import sharded as S
 from boundless_tpu_torch.parallel import mesh as M
 from boundless_tpu_torch.prover import stark
 from boundless_tpu_torch.zkvm import prove
@@ -78,11 +79,11 @@ def test_tp_proof_equals_golden_and_stark_prove(golden, tp):
     fn, shard_fn = M.shard_batched_prover(air, PO2, prove.TEST_PS, mesh)
     placed, _, _ = shard_fn([data], [pub], ctrl)
     widths = [b.shape[1] for b in placed[0].blocks]
-    assert widths == [b - a for a, b in M.column_split(air.data_cols, tp)]
+    assert widths == [b - a for a, b in S.column_split(air.data_cols, tp)]
     assert len(widths) == tp
-    before = M.MOVED_BYTES
+    before = S.MOVED_BYTES
     proofs = fn(placed, [pub], ctrl)
-    assert M.MOVED_BYTES > before
+    assert S.MOVED_BYTES > before
     _assert_flat_equal(proofs[0], gold)
     _assert_flat_equal(proofs[0], single)
 
@@ -120,13 +121,13 @@ def test_keccak_tp2_proof_equals_golden():
     (4048, 2, [2032, 2016]), (32, 2, [16, 16]), (40, 3, [16, 16, 8]),
     (40, 4, [16, 16, 8])])
 def test_column_split_examples(c, tp, widths):
-    assert [b - a for a, b in M.column_split(c, tp)] == widths
+    assert [b - a for a, b in S.column_split(c, tp)] == widths
 
 
 @pytest.mark.parametrize("c", COLS)
 def test_column_split_covers_every_column_once(c):
     for tp in TPS:
-        split = M.column_split(c, tp)
+        split = S.column_split(c, tp)
         assert 1 <= len(split) <= tp
         assert split[0][0] == 0 and split[-1][1] == c
         assert all(a < b for a, b in split)  # no empty shard
@@ -136,7 +137,7 @@ def test_column_split_covers_every_column_once(c):
         assert all(w == widths[0] for w in widths[:-1])
         assert widths[-1] <= widths[0]
     with pytest.raises(ValueError):
-        M.column_split(c, 0)
+        S.column_split(c, 0)
 
 
 @pytest.mark.parametrize("c", COLS)
@@ -147,7 +148,7 @@ def test_chained_sponge_equals_whole_rows(c):
     for tp in TPS[1:]:
         # the sharded commit chains the plain sponge (a CPU tensor) through
         # the blocks: hash_rows(block, init=state, out_words=24)
-        split = M.column_split(c, tp)
+        split = S.column_split(c, tp)
         sharded = merkle.commit(tuple(x[:, a:b] for a, b in split))
         assert len(sharded.blocks) == len(split)
         assert all(torch.equal(g, w)
@@ -165,7 +166,7 @@ def test_partial_weighted_sums_add_to_whole(tp):
               for c in (40, 392, 24)]  # ctrl, data, accum
     weights = F.fp(rng.integers(0, F.P, size=(456, 8), dtype=np.int64))
     whole = bbmm.bb_weighted_sum_blocks(groups, weights)
-    trees = [tuple(g[:, a:b] for a, b in M.column_split(g.shape[1], tp))
+    trees = [tuple(g[:, a:b] for a, b in S.column_split(g.shape[1], tp))
              for g in groups[:2]] + [(groups[2],)]
     assert torch.equal(stark._trace_sums(trees, weights), whole)
 
@@ -177,7 +178,7 @@ def test_group_mixing_device_types_raises():
                                mesh)
     cpu = torch.zeros((8, 16), dtype=torch.int32)
     with pytest.raises(ValueError, match="mixes device types"):
-        M.ShardedTrace((cpu, torch.zeros((8, 4), dtype=torch.int32,
+        S.ShardedTrace((cpu, torch.zeros((8, 4), dtype=torch.int32,
                                          device="meta")))
     with pytest.raises(ValueError, match="multiple of 16"):
-        M.ShardedTrace((cpu[:, :8].contiguous(), cpu))
+        S.ShardedTrace((cpu[:, :8].contiguous(), cpu))

@@ -211,13 +211,17 @@ def test_plain_msm_small_cases():
 
 
 def test_kernel_wrapper_takes_the_plain_version_on_the_cpu():
+    """The CPU route is the wrapper's caller's (`msm_device.msm`): it runs
+    the plain version and launches nothing; the wrapper itself takes CUDA
+    tensors only."""
     points, scalars = edge_case_msm(n=50, seed=3)
+    pts, pr = MD.device_points(points, "cpu"), MD.prep(scalars, "cpu")
     before = MK.LAUNCHES
-    out = MK.pippenger(MD.device_points(points, "cpu"),
-                       MD.prep(scalars, "cpu"))
-    assert MK.LAUNCHES == before
-    assert MD.point_from_words(out.numpy()).eq(
+    assert MD.msm(points, scalars, "cpu").eq(
         HM.msm_pippenger(points, scalars))
+    assert MK.LAUNCHES == before
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        MK.pippenger(pts, pr)
 
 
 def test_qap_dispatch_runs_the_host_pippenger_on_the_cpu():

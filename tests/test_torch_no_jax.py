@@ -9,8 +9,9 @@ prove_segment -> verify_segment for the echo guest at po2 8 on the CPU
 dev-mode keccak batch lifted into the coproc lattice, a
 RecursionAir proof of a small program (the native `rec_eval` trace) with
 its verification and the same proof spread by trace columns over two
-CPU positions (`parallel/mesh.ShardedTrace`), the wrap's modules: a p254-suite commit, a BLAKE3
-digest, a Groth16 proof and its pairing check, and the MSM's plain
+CPU positions (`core/sharded.ShardedTrace`), the wrap's modules: a
+p254-suite commit, a BLAKE3 digest, a Groth16 proof and its pairing
+check, and the MSM's plain
 version, and a dev-mode session of the echo guest through the port's
 cluster (`ClusterApi`, worker threads, the receipt's wire format), the
 market's modules: `cli requestor submit` through a dev-mode broker and the
@@ -84,10 +85,10 @@ rec = stark.prove(rair.AIR, data, pub, 8, prove.TEST_PS, ctrl)
 root = stark.control_root_of(rair.AIR, 8, ctrl, prove.TEST_PS)
 assert stark.verify(rair.AIR, rec, pub, 8, root, prove.TEST_PS)
 from boundless_tpu_torch import convert
-from boundless_tpu_torch.parallel import mesh
+from boundless_tpu_torch.core import sharded
 two = ["cpu", "cpu"]
-rec_tp = stark.prove(rair.AIR, mesh.ShardedTrace.of(data, two), pub, 8,
-                     prove.TEST_PS, mesh.ShardedTrace.of(ctrl, two))
+rec_tp = stark.prove(rair.AIR, sharded.ShardedTrace.of(data, two), pub, 8,
+                     prove.TEST_PS, sharded.ShardedTrace.of(ctrl, two))
 a, b = convert.proof_to_numpy(rec_tp), convert.proof_to_numpy(rec)
 assert sorted(a) == sorted(b) and all((a[k] == b[k]).all() for k in a)
 for must in ("groth16.bn254", "groth16.circuit", "groth16.crs", "groth16.evm",

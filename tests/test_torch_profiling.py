@@ -26,6 +26,7 @@ from boundless_tpu_torch.cluster import metrics as M
 from boundless_tpu_torch.cluster.taskdb import MemoryBackend
 from boundless_tpu_torch.core import field as F
 from boundless_tpu_torch.recursion import succinct
+from boundless_tpu_torch.utils import metrics as UM
 from boundless_tpu_torch.utils import profiling, serde
 from boundless_tpu_torch.zkvm import guests, prove
 from boundless_tpu_torch.zkvm.executor import Executor
@@ -67,14 +68,14 @@ def _histogram(name, **labels):
 def test_tracing_off_records_nothing_and_never_waits(syncs):
     profiling.disable()
     before = profiling.records()
-    reg = _histogram(M.SPAN_SECONDS, span="test.off")
+    reg = _histogram(UM.SPAN_SECONDS, span="test.off")
     with profiling.span("test.off", sync=True, device="cuda") as outer:
         with profiling.span("test.off", sync=True, job="j") as inner:
             pass
     assert outer is inner is None  # one shared null context
     assert profiling.span("a") is profiling.span("b", sync=True)
     assert profiling.records() == before
-    assert _histogram(M.SPAN_SECONDS, span="test.off") == reg
+    assert _histogram(UM.SPAN_SECONDS, span="test.off") == reg
     assert syncs == []
 
 
@@ -138,11 +139,12 @@ def test_registry_holds_each_span_s_seconds(tracing):
         with profiling.span(name):
             time.sleep(pause)
     made = [r for r in tracing.new() if r["name"] == name]
-    total, count = _histogram(M.SPAN_SECONDS, span=name)
+    total, count = _histogram(UM.SPAN_SECONDS, span=name)
     assert count == len(made) == 3
     assert total == pytest.approx(
         sum((r["t1_ns"] - r["t0_ns"]) / 1e9 for r in made), abs=1e-9)
     assert total >= 0.012
+    assert M.REGISTRY is UM.REGISTRY  # the cluster's /metrics registry
     assert f'span_seconds_count{{span="{name}"}} 3' in M.REGISTRY.render()
 
 

@@ -330,7 +330,7 @@ def test_recursion_air_constraints_and_accum_equal_jax():
                                                accum.numpy(), roll)]
         j = [jnp.asarray(x.astype(np.uint32)) for x in
              cols(ctrl.numpy(), data.numpy(), accum.numpy(), roll)]
-        tcons.append(dsl.Columns(*(stark._ColAccessor(x) for x in t)))
+        tcons.append(dsl.Columns(*(dsl.ColAccessor(x) for x in t)))
         jcons.append(JDSL.Columns(*(_Cols(x) for x in j)))
     tc = rair.AIR.constraints(dsl.BaseAlg(), tcons[0], tcons[1], F.ext(glob),
                               pub)

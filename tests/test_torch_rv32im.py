@@ -117,14 +117,14 @@ def constraint_failures(air, w, variant):
     pub = W.to_public_values(w.pub)
     globals_ = _globals(air)
     accum = air.accum_trace(ctrl, data, globals_)
-    acc = stark._ColAccessor
+    acc = dsl.ColAccessor
     now = dsl.Columns(acc(ctrl), acc(data), acc(accum))
     nxt = dsl.Columns(*(acc(torch.roll(x, -1, 0)) for x in (ctrl, data, accum)))
     cons = air.constraints(dsl.BaseAlg(), now, nxt, globals_, pub)
     n, zk = data.shape[0], air.zk_rows(PO2)
     bad = []
     for i, (c, trans) in enumerate(zip(cons, air._zclass)):
-        v = c.v if isinstance(c, (stark.ExtVal, stark.VecVal)) else c
+        v = c.v if isinstance(c, (dsl.ExtVal, dsl.VecVal)) else c
         if not trans:
             v = v[: n - zk]
         if bool((v != 0).any()):
