@@ -49,7 +49,13 @@ def load(name: str, sources):
 
 
 def witness_lib():
-    return load("bt_witness", ["witness_gen.cpp"])
+    lib = load("bt_witness", ["witness_gen.cpp"])
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.bt_trace_cycles.argtypes = (
+        [vp, vp, i32, ctypes.c_uint32, vp, vp, vp, i32, vp, i32, vp, i32,
+         i32, i32] + [vp] * 6 + [ctypes.c_char_p, i32])
+    lib.bt_trace_cycles.restype = ctypes.c_int
+    return lib
 
 
 def executor_lib():

@@ -6,10 +6,14 @@
 // buffers"). Must stay bit-identical to the Python replay; the test suite
 // diffs both outputs.
 //
-// data_out may hold an earlier trace (zkvm/prove.py reuses one host buffer
-// a concurrent proof): each cycle row is cleared just before it is filled,
-// while it is in cache, so rows [0, cycles) come out as from a zeroed array;
-// the Python tail clears the rows after them.
+// Every row of the data trace but the memory log's columns and the blinded
+// zk rows is written here, once: each cycle row with its degree-helper
+// columns (sx, is_addm, is_subm, sh_sra) while it is in cache, then the
+// padding rows [cycles, n_rows) with the frozen state, then each image-table
+// row's fetch multiplicity (mult_fetch), counted in the loop. data_out may
+// hold an earlier trace (zkvm/prove.py reuses one host buffer a concurrent
+// proof): each row is cleared just before it is filled, so the rows come out
+// as from a zeroed array.
 //
 // Build: g++ -O2 -shared -fPIC -o libbt_witness.so witness_gen.cpp
 // Loaded via ctypes (no pybind11 in the image).
@@ -18,6 +22,7 @@
 #include <cstdio>
 #include <cstring>
 #include <unordered_map>
+#include <vector>
 
 namespace {
 
@@ -35,6 +40,7 @@ struct Layout {
   int32_t m_rem_bits, m_d_bits, m_ca0, m_ca1, m_cb, m_bzero, m_binv;
   int32_t m_s_bits, m_g, m_g2;
   int32_t k_kec, kec_cnt, kec_last, kec_linv, cp_seq;
+  int32_t sx, is_addm, is_subm, sh_sra, mult_fetch;
 };
 
 // keccak-f[1600] (mirrors executor.cpp; KECCAK ecall witness rows)
@@ -78,15 +84,20 @@ void keccakf(uint64_t a[25]) {
   }
 }
 
-uint64_t modpow(uint64_t b, uint64_t e, uint64_t m) {
-  uint64_t r = 1;
-  b %= m;
-  while (e) {
-    if (e & 1) r = (__uint128_t)r * b % m;
-    b = (__uint128_t)b * b % m;
-    e >>= 1;
-  }
-  return r;
+// Inverses mod FP of 0..INV_MAX (0 for 0): every inverse the witness takes
+// is of a sum of two 16-bit limbs (z_inv, m_binv) or of a burst row's
+// distance to its last (kec_linv), so a table built once replaces the
+// exponentiations. inv[i] = -(FP / i) * inv[FP % i].
+constexpr uint32_t INV_MAX = 2 * 0xFFFF;
+const std::vector<uint32_t>& small_inverses() {
+  static const std::vector<uint32_t> inv = [] {
+    std::vector<uint32_t> t(INV_MAX + 1, 0);
+    t[1] = 1;
+    for (uint32_t i = 2; i <= INV_MAX; i++)
+      t[i] = (uint32_t)((FP - FP / i) * t[FP % i] % FP);
+    return t;
+  }();
+  return inv;
 }
 
 int32_t sext(uint32_t v, int bits) {
@@ -195,6 +206,36 @@ Decoded decode(uint32_t word) {
 
 void fail(char* err, int len, const char* msg) { snprintf(err, len, "%s", msg); }
 
+// The machine state a row carries: pc, register limbs, halted, the four
+// sequence counters (commit, read, verify, cpio).
+void write_state(int64_t* r, const Layout& L, uint32_t pc,
+                 const uint32_t* regs, bool halted, const uint64_t* seqs) {
+  r[L.pc] = pc;
+  for (int i = 0; i < 32; i++) {
+    r[L.regs + 2 * i] = regs[i] & 0xFFFF;
+    r[L.regs + 2 * i + 1] = regs[i] >> 16;
+  }
+  r[L.halted] = halted ? 1 : 0;
+  r[L.commit_seq] = (int64_t)seqs[0];
+  r[L.read_seq] = (int64_t)seqs[1];
+  r[L.verify_seq] = (int64_t)seqs[2];
+  r[L.cp_seq] = (int64_t)seqs[3];
+}
+
+// The committed degree-helper columns of a filled row, from its own cells
+// (air/rv32im.py "shared adder"/"sx"; witness.py's replay tail computes the
+// same over whole columns).
+void write_helpers(int64_t* r, const Layout& L) {
+  int64_t alt = r[L.alt];
+  int64_t alu_nm = (r[L.sel + 7] + r[L.sel + 8]) * (1 - r[L.is_m]);
+  r[L.sx] = r[L.a_bits + 31] ^ r[L.b_bits + 31];
+  r[L.is_addm] = alu_nm * r[L.f3] * (1 - alt) + r[L.sel + 5] + r[L.sel + 6] +
+                 r[L.sel + 3];
+  r[L.is_subm] =
+      alu_nm * (r[L.f3] * alt + r[L.f3 + 2] + r[L.f3 + 3]) + r[L.sel + 4];
+  r[L.sh_sra] = r[L.is_shift_col] * r[L.f3 + 5] * alt;
+}
+
 }  // namespace
 
 extern "C" int bt_trace_cycles(
@@ -209,11 +250,16 @@ extern "C" int bt_trace_cycles(
     char* err, int err_len) {
   Layout L;
   std::memcpy(&L, layout_arr, sizeof(L));
+  if (n_img > n_rows) return fail(err, err_len, "image table exceeds rows"), 1;
   std::unordered_map<uint32_t, uint32_t> mem;
-  std::unordered_map<uint32_t, uint32_t> img;
+  // address -> its image-table row (img_addrs is sorted: the ctrl table's
+  // order), whose fetches land in fetches[row]
+  std::unordered_map<uint32_t, int> img;
+  std::vector<int64_t> fetches(n_img, 0);
+  const std::vector<uint32_t>& inv = small_inverses();
   mem.reserve(n_mem * 2);
   for (int i = 0; i < n_mem; i++) mem[mem_addrs[i]] = mem_vals[i];
-  for (int i = 0; i < n_img; i++) img[img_addrs[i]] = img_words[i];
+  for (int i = 0; i < n_img; i++) img[img_addrs[i]] = i;
   uint32_t pc = pre_pc;
   int read_pos = 0;
   int n_ops = 0, n_io = 0;
@@ -225,24 +271,17 @@ extern "C" int bt_trace_cycles(
   while (clk < cycles) {
     int64_t* r = row(clk);
     std::memset(r, 0, (size_t)data_cols * sizeof(int64_t));
-    r[L.pc] = pc;
-    for (int i = 0; i < 32; i++) {
-      r[L.regs + 2 * i] = regs[i] & 0xFFFF;
-      r[L.regs + 2 * i + 1] = regs[i] >> 16;
-    }
+    write_state(r, L, pc, regs, halted, seqs);
     r[L.active] = 1;
-    r[L.halted] = halted ? 1 : 0;
-    r[L.commit_seq] = (int64_t)seqs[0];
-    r[L.read_seq] = (int64_t)seqs[1];
-    r[L.verify_seq] = (int64_t)seqs[2];
-    r[L.cp_seq] = (int64_t)seqs[3];
     if (halted) return fail(err, err_len, "cycle after halt"), 1;
 
     auto it = mem.find(pc & ~3u);
     if (it == mem.end()) return fail(err, err_len, "fetch unmapped pc"), 1;
     auto ig = img.find(pc & ~3u);
-    if (ig == img.end() || ig->second != it->second)
+    if (ig == img.end() || img_words[ig->second] != it->second)
       return fail(err, err_len, "self-modifying code is not provable"), 1;
+    int64_t& fetched = fetches[ig->second];
+    fetched++;
     uint32_t word = it->second;
     Decoded d = decode(word);
     if (!d.valid)
@@ -339,7 +378,7 @@ extern "C" int bt_trace_cycles(
       uint32_t z = (r32 & 0xFFFF) + (r32 >> 16);
       int eqf = z == 0 ? 1 : 0;
       r[L.eq] = eqf;
-      r[L.z_inv] = z ? (int64_t)modpow(z % FP, FP - 2, FP) : 0;
+      r[L.z_inv] = inv[z];
       int taken;
       switch (d.f3) {
         case 0: taken = eqf; break;
@@ -478,7 +517,7 @@ extern "C" int bt_trace_cycles(
         int bz = op2 == 0 ? 1 : 0;
         r[L.m_bzero] = bz;
         uint32_t s = (op2 & 0xFFFF) + (op2 >> 16);
-        r[L.m_binv] = s ? (int64_t)modpow(s % FP, FP - 2, FP) : 0;
+        r[L.m_binv] = inv[s];
         uint32_t k0 = ((lo & 0xFFFF) + (rem & 0xFFFF)) >> 16;
         r[L.m_ca0] = (int64_t)k0;
         if (d.f3 == 5 || d.f3 == 7) {
@@ -638,11 +677,7 @@ extern "C" int bt_trace_cycles(
           rj[L.k_kec] = 1;
           rj[L.kec_cnt] = j;
           rj[L.kec_last] = j == 49 ? 1 : 0;
-          rj[L.kec_linv] =
-              j == 49 ? 0
-                      : (int64_t)modpow((uint64_t)((int64_t)j - 49 +
-                                                   (int64_t)FP) % FP,
-                                        FP - 2, FP);
+          rj[L.kec_linv] = j == 49 ? 0 : FP - inv[49 - j];  // 1/(j - 49)
           for (int i = 0; i < 32; i++) rj[L.r_bits + i] = (a0 >> i) & 1;
           for (int i = 0; i < 32; i++)
             rj[L.b_bits + i] = (in_w[j] >> i) & 1;
@@ -673,7 +708,9 @@ extern "C" int bt_trace_cycles(
           io_rows_out[4 * n_io + 3] = out_w[j] >> 16;
           n_io++;
           mem[a0 + 4 * j] = out_w[j];
+          write_helpers(rj, L);
         }
+        fetched += 49;  // every row of the burst fetches the ecall
         seqs[3] = cp0 + 100;
         pc = pc + 4;
         clk += 50;
@@ -720,6 +757,7 @@ extern "C" int bt_trace_cycles(
     r[L.c1] = c1;
     r[L.rdv] = rdv & 0xFFFF;
     r[L.rdv + 1] = rdv >> 16;
+    write_helpers(r, L);
 
     bool wen = d.sel[0] || d.sel[1] || d.sel[2] || d.sel[3] || d.sel[5] ||
                d.sel[7] || d.sel[8];
@@ -727,6 +765,18 @@ extern "C" int bt_trace_cycles(
     pc = next_pc;
     clk++;
   }
+  // padding rows: the frozen state and the default one-hots
+  for (int t = cycles; t < n_rows; t++) {
+    int64_t* r = row(t);
+    std::memset(r, 0, (size_t)data_cols * sizeof(int64_t));
+    write_state(r, L, pc, regs, halted, seqs);
+    r[L.rd_oh] = 1;
+    r[L.rs1_oh] = 1;
+    r[L.rs2_oh] = 1;
+    r[L.sh_oh] = 1;
+  }
+  // table rows may lie among the padding rows, so the counts go in last
+  for (int t = 0; t < n_img; t++) row(t)[L.mult_fetch] = fetches[t];
   counts[0] = n_ops;
   counts[1] = n_io;
   *post_pc = pc;

@@ -2,10 +2,13 @@
 
 The JAX package's witness generator (`boundless_tpu/zkvm/witness.py`),
 wired to the port's column layout (`air/rv32im.py`, identical to the
-reference's): a Python replay (`trace_segment`) and the C++ cycle loop of
-the port's copy of `native/witness_gen.cpp` (`trace_segment_native`), sharing
-one vectorized tail. All values are canonical int64; `to_public_values`
-lifts the claim to Montgomery tensors.
+reference's): a Python replay (`trace_segment`) and the C++ pass of the
+port's copy of `native/witness_gen.cpp` (`trace_segment_native`). Each fills
+the cycle rows, the padding rows, the fetch multiplicities and the
+degree-helper columns its own way (the native pass row by row, the replay
+over whole columns); they share the tail that adds the memory log, the
+publics and the zk rows. All values are canonical int64;
+`to_public_values` lifts the claim to Montgomery tensors.
 
 The blinded zk tail rows come from an explicit numpy Generator; without
 one, `zk_rng()` seeds it from BT_ZK_SEED like the reference, so a given
@@ -15,6 +18,7 @@ seed gives the reference's rows.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional
 
@@ -24,6 +28,7 @@ from ..air import rv32im
 from ..air.rv32im import (DC, DC_I, CC, TAG, IO_MAX, CP_IO, KEC_WORDS,
                           MEM_PAGES, PAGE_WORDS, MEM_PAGE_ELEMS, PublicValues)
 from ..core import field as F
+from ..utils import profiling
 from . import isa
 from .executor import Segment, MemoryImage, GuestFault, M32
 
@@ -111,6 +116,19 @@ def decode_row(addr: int, word: int):
             + [alt, imm_lo, imm_hi, imm_field, rd, rs1, rs2, mext])
 
 
+def _image_table(image: MemoryImage, po2: int) -> list:
+    """The image's (address, word) pairs in the order of the ctrl trace's
+    decoded table (by address)."""
+    n = 1 << po2
+    rows = sorted(image.words.items())
+    # The decoded table must live in the REAL region: a table entry on a
+    # blinded zk row could never be fetched (its multiplicity column is
+    # free there and the LogUp running sum only binds real rows).
+    assert len(rows) <= n - rv32im.zk_rows(po2), \
+        "program larger than real segment rows"
+    return rows
+
+
 def build_ctrl_trace(image: MemoryImage, po2: int) -> np.ndarray:
     """Ctrl-group trace (canonical int64): selectors + decoded image table.
 
@@ -118,11 +136,7 @@ def build_ctrl_trace(image: MemoryImage, po2: int) -> np.ndarray:
     """
     n = 1 << po2
     zk = rv32im.zk_rows(po2)
-    rows = sorted(image.words.items())
-    # The decoded table must live in the REAL region: a table entry on a
-    # blinded zk row could never be fetched (its multiplicity column is
-    # free there and the LogUp running sum only binds real rows).
-    assert len(rows) <= n - zk, "program larger than real segment rows"
+    rows = _image_table(image, po2)
     ctrl = np.zeros((n, CC.total), dtype=np.int64)
     ctrl[0, CC.is_first] = 1
     # trans gate: transitions between real rows only (blinding region =
@@ -150,9 +164,21 @@ def build_ctrl_trace(image: MemoryImage, po2: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class SegmentWitness:
+    """A segment's data trace and claim values, and the image and po2 its
+    ctrl trace is built from.
+
+    `ctrl` (`build_ctrl_trace`) is built at its first read: the prover
+    takes the copy `prove._image_ctrl` keeps for the image, so a proof
+    never builds it.
+    """
     data: np.ndarray  # (N, DC.total) canonical int64
-    ctrl: np.ndarray  # (N, CC.total)
     pub: dict  # canonical int64 arrays matching PublicValues fields
+    image: MemoryImage
+    po2: int
+
+    @functools.cached_property
+    def ctrl(self) -> np.ndarray:  # (N, CC.total)
+        return build_ctrl_trace(self.image, self.po2)
 
 
 def _bits(v, n=32):
@@ -186,9 +212,7 @@ def trace_segment(image: MemoryImage, seg: Segment, po2: int,
     n = 1 << po2
     assert seg.cycles <= n - 1
     data = np.zeros((n, DC.total), dtype=np.int64)
-    ctrl = build_ctrl_trace(image, po2)
-    addr_to_trow = {a: i for i, (a, _) in
-                    enumerate(sorted(image.words.items()))}
+    table = _image_table(image, po2)
 
     regs = seg.pre_regs.astype(np.int64).copy()
     mem = dict(seg.pre_mem)
@@ -647,23 +671,20 @@ def trace_segment(image: MemoryImage, seg: Segment, po2: int,
         pc = next_pc
         clk += 1
 
-    return _postprocess(image, seg, n, data, regs, pc, seqs, mem_ops,
+    _replay_rows(data, seg.cycles, regs, pc, seqs, halted,
+                 np.array([a for a, _ in table], dtype=np.int64))
+    return _postprocess(image, seg, po2, data, regs, pc, seqs, mem_ops,
                         io_rows, halted, pre_seqs, pre_regs_limbs, pre_pc,
-                        addr_to_trow, ctrl, rng)
+                        rng)
 
 
-def _postprocess(image, seg, n, data, regs, pc, seqs, mem_ops, io_rows,
-                 halted, pre_seqs, pre_regs_limbs, pre_pc, addr_to_trow,
-                 ctrl, rng):
-    """Shared tail of witness generation (Python + native cycle loops)."""
-    if halted != bool(seg.is_final):
-        # non-final segments pause un-halted; final ones must have halted
-        raise GuestFault("segment halt state does not match plan")
-
-    # padding rows: frozen state + default one-hots (cleared first: the
-    # native loop may have filled a buffer that held an earlier trace)
-    pad = data[seg.cycles : n]
-    pad[:] = 0
+def _replay_rows(data, cycles, regs, pc, seqs, halted, table_addrs):
+    """The replay's passes over whole columns, which the native pass makes
+    row by row (native/witness_gen.cpp): the padding rows, the fetch
+    multiplicities and the degree-helper columns. `data` is the replay's
+    own zeroed array."""
+    # padding rows: frozen state + default one-hots
+    pad = data[cycles:]
     pad[:, DC.pc] = pc
     pad[:, DC.regs.start : DC.regs.stop] = _reg_limbs(regs)
     pad[:, DC.halted] = 1 if halted else 0
@@ -676,13 +697,13 @@ def _postprocess(image, seg, n, data, regs, pc, seqs, mem_ops, io_rows,
     pad[:, DC.rs2_oh.start] = 1
     pad[:, DC.sh_oh.start] = 1
 
-    # fetch multiplicities
-    for clk in range(seg.cycles):
-        t = addr_to_trow[int(data[clk, DC.pc]) & ~3]
-        data[t, DC.mult_fetch] += 1
+    # fetch multiplicities: each cycle's pc counted on its table row (the
+    # replay fetched only image words)
+    t = np.searchsorted(table_addrs, data[:cycles, DC.pc] & ~3)
+    data[: len(table_addrs), DC.mult_fetch] = np.bincount(
+        t, minlength=len(table_addrs))
 
-    # committed degree-helper columns (vectorized; shared by the Python
-    # and native cycle loops — see air/rv32im.py "shared adder"/"sx")
+    # committed degree-helper columns (air/rv32im.py "shared adder"/"sx")
     a31 = data[:, DC.a_bits.start + 31]
     b31 = data[:, DC.b_bits.start + 31]
     data[:, DC.sx] = a31 ^ b31
@@ -696,8 +717,18 @@ def _postprocess(image, seg, n, data, regs, pc, seqs, mem_ops, io_rows,
                            + _sel(4))
     data[:, DC.sh_sra] = data[:, DC.is_shift_col] * _f3(5) * alt_c
 
+
+def _postprocess(image, seg, po2, data, regs, pc, seqs, mem_ops, io_rows,
+                 halted, pre_seqs, pre_regs_limbs, pre_pc, rng):
+    """Shared tail of witness generation (Python + native cycle loops):
+    the sorted memory log, the publics and the blinded zk rows."""
+    if halted != bool(seg.is_final):
+        # non-final segments pause un-halted; final ones must have halted
+        raise GuestFault("segment halt state does not match plan")
+
     # sorted memory log + paging-port columns
-    zk = rv32im.zk_rows(n.bit_length() - 1)
+    n = 1 << po2
+    zk = rv32im.zk_rows(po2)
     mem_ops.sort(key=lambda t: (t[1], t[0]))
     assert len(mem_ops) <= n - zk, \
         "too many memory ops for the real trace region"
@@ -793,22 +824,26 @@ def _postprocess(image, seg, n, data, regs, pc, seqs, mem_ops, io_rows,
         rng = zk_rng() if rng is None else rng
         data[n - zk:] = rng.integers(0, F.P, size=(zk, data.shape[1]),
                                      dtype=np.int64)
-    return SegmentWitness(data=data, ctrl=ctrl, pub=pub)
+    return SegmentWitness(data=data, pub=pub, image=image, po2=po2)
 
 
 def trace_segment_native(image: MemoryImage, seg: Segment, po2: int,
                          rng: Optional[np.random.Generator] = None,
                          out: Optional[np.ndarray] = None
                          ) -> SegmentWitness:
-    """C++ cycle loop (native/witness_gen.cpp) + shared Python tail.
+    """C++ cycle loop (native/witness_gen.cpp) + the shared Python tail.
 
-    Bit-identical to trace_segment (diffed in tests); ~100x faster on the
-    per-cycle fill, keeping TPU chips fed at large po2.
+    Bit-identical to trace_segment (diffed in tests). The native pass
+    writes every row but the memory log's columns and the zk rows: each
+    cycle row with its degree-helper columns, the padding rows, and the
+    fetch multiplicities it counts; the tail (`_postprocess`) adds the
+    memory log, the publics and the zk rows. Spans (`utils/profiling`):
+    `zkvm.witness.cycles` the native call, `zkvm.witness.tail` the rest.
 
     out: a C-contiguous (2^po2, DC.total) int64 array to fill in place and
-    return as the witness's data, whatever it holds (the cycle loop clears
-    each row it fills, the tail the padding rows); None allocates a zeroed
-    one. Either gives the same words.
+    return as the witness's data, whatever it holds (every row is cleared
+    before it is filled); None allocates a zeroed one. Either gives the
+    same words.
     """
     import ctypes
 
@@ -825,10 +860,8 @@ def trace_segment_native(image: MemoryImage, seg: Segment, po2: int,
             raise ValueError(f"out must be a C-contiguous int64 array of "
                              f"shape {(n, DC.total)}")
         data = out
-    ctrl = build_ctrl_trace(image, po2)
-    addr_to_trow = {a: i for i, (a, _) in
-                    enumerate(sorted(image.words.items()))}
 
+    # the order of native/witness_gen.cpp's Layout
     layout = np.array([
         DC.regs.start, DC.pc, DC.sel.start, DC.f3.start, DC.alt, DC.imm_lo,
         DC.imm_hi, DC.imm_field, DC.rd_oh.start, DC.rs1_oh.start,
@@ -843,9 +876,10 @@ def trace_segment_native(image: MemoryImage, seg: Segment, po2: int,
         DC.m_ca0, DC.m_ca1, DC.m_cb, DC.m_bzero, DC.m_binv,
         DC.m_s_bits.start, DC.m_g, DC.m_g2,
         DC.k_kec, DC.kec_cnt, DC.kec_last, DC.kec_linv, DC.cp_seq,
+        DC.sx, DC.is_addm, DC.is_subm, DC.sh_sra, DC.mult_fetch,
     ], dtype=np.int32)
 
-    img_items = sorted(image.words.items())
+    img_items = _image_table(image, po2)
     img_addrs = np.array([a for a, _ in img_items], dtype=np.uint32)
     img_words = np.array([w for _, w in img_items], dtype=np.uint32)
     mem_items = sorted(seg.pre_mem.items())
@@ -864,38 +898,28 @@ def trace_segment_native(image: MemoryImage, seg: Segment, po2: int,
     post_pc = np.zeros(1, dtype=np.uint32)
     err = ctypes.create_string_buffer(256)
 
-    u32p = np.ctypeslib.ndpointer  # noqa: N806 (brevity)
-    rc = lib.bt_trace_cycles(
-        img_addrs.ctypes.data_as(ctypes.c_void_p),
-        img_words.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int(len(img_items)),
-        ctypes.c_uint32(seg.pre_pc),
-        regs.ctypes.data_as(ctypes.c_void_p),
-        mem_addrs.ctypes.data_as(ctypes.c_void_p),
-        mem_vals.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int(len(mem_items)),
-        reads.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int(len(reads)),
-        seqs_arr.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int(seg.cycles), ctypes.c_int(n),
-        ctypes.c_int(DC.total),
-        layout.ctypes.data_as(ctypes.c_void_p),
-        data.ctypes.data_as(ctypes.c_void_p),
-        mem_ops_out.ctypes.data_as(ctypes.c_void_p),
-        io_rows_out.ctypes.data_as(ctypes.c_void_p),
-        counts.ctypes.data_as(ctypes.c_void_p),
-        post_pc.ctypes.data_as(ctypes.c_void_p),
-        err, ctypes.c_int(256))
+    with profiling.span("zkvm.witness.cycles"):
+        rc = lib.bt_trace_cycles(
+            img_addrs.ctypes.data, img_words.ctypes.data, len(img_items),
+            seg.pre_pc, regs.ctypes.data, mem_addrs.ctypes.data,
+            mem_vals.ctypes.data, len(mem_items), reads.ctypes.data,
+            len(reads), seqs_arr.ctypes.data, seg.cycles, n, DC.total,
+            layout.ctypes.data, data.ctypes.data, mem_ops_out.ctypes.data,
+            io_rows_out.ctypes.data, counts.ctypes.data,
+            post_pc.ctypes.data, err, len(err))
     if rc != 0:
         raise GuestFault(err.value.decode() or "native witness gen failed")
-    halted = bool(err.raw[0])
-    mem_ops = [tuple(int(x) for x in row) for row in mem_ops_out[: counts[0]]]
-    io_rows = [tuple(int(x) for x in row) for row in io_rows_out[: counts[1]]]
-    seqs = dict(commit=int(seqs_arr[0]), read=int(seqs_arr[1]),
-                verify=int(seqs_arr[2]), cpio=int(seqs_arr[3]))
-    return _postprocess(image, seg, n, data, regs, int(post_pc[0]), seqs,
-                        mem_ops, io_rows, halted, pre_seqs, pre_regs_limbs,
-                        seg.pre_pc, addr_to_trow, ctrl, rng)
+    with profiling.span("zkvm.witness.tail"):
+        halted = bool(err.raw[0])
+        mem_ops = [tuple(int(x) for x in row)
+                   for row in mem_ops_out[: counts[0]]]
+        io_rows = [tuple(int(x) for x in row)
+                   for row in io_rows_out[: counts[1]]]
+        seqs = dict(commit=int(seqs_arr[0]), read=int(seqs_arr[1]),
+                    verify=int(seqs_arr[2]), cpio=int(seqs_arr[3]))
+        return _postprocess(image, seg, po2, data, regs, int(post_pc[0]),
+                            seqs, mem_ops, io_rows, halted, pre_seqs,
+                            pre_regs_limbs, seg.pre_pc, rng)
 
 
 def _reg_limbs(regs):

@@ -203,7 +203,13 @@ def test_prove_segment_records_its_layers(tracing):
     assert set(top) == {"zkvm.witness", "upload", "stark.prove"}
     stages = children(top["stark.prove"])
     assert set(stages) == set(STAGES)
-    for parent, kids in ((root, top), (top["stark.prove"], stages)):
+    # the native pass, then the Python tail after it
+    witness = children(top["zkvm.witness"])
+    assert set(witness) == {"zkvm.witness.cycles", "zkvm.witness.tail"}
+    assert witness["zkvm.witness.cycles"]["t1_ns"] <= \
+        witness["zkvm.witness.tail"]["t0_ns"]
+    for parent, kids in ((root, top), (top["stark.prove"], stages),
+                         (top["zkvm.witness"], witness)):
         span = parent["t1_ns"] - parent["t0_ns"]
         assert sum(k["t1_ns"] - k["t0_ns"] for k in kids.values()) <= span
         for k in kids.values():

@@ -5,6 +5,8 @@ trace and public values equal the JAX package's for the echo guest at
 po2 8; the witness satisfies the port's AIR pointwise, and a tampered one
 does not. Exact equality throughout."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -144,7 +146,7 @@ def test_tampered_witness_fails(witnesses, variant):
     w = witnesses[0]
     data = w.data.copy()
     data[3, R.DC.rs1v.start] += 1  # a register read that disagrees
-    bad = W.SegmentWitness(data=data, ctrl=w.ctrl, pub=w.pub)
+    bad = dataclasses.replace(w, data=data)
     assert constraint_failures(air, bad, variant) != []
 
 
